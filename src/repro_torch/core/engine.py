@@ -1,0 +1,395 @@
+"""Unified batched SearchEngine: one query API over the port's exact-KNN
+backends (a port of the reference's ``core/engine.py``).
+
+    engine = make_engine("amih", db_words, p)          # on the CUDA device
+    ids, sims, stats = engine.knn_batch(q_words, k)   # q_words: (B, W)
+
+Backends ported so far:
+
+  - "linear_scan" — exhaustive Eq. 3 scan, batched over queries with
+                    chunked host popcounts (the float64 numpy oracle).
+  - "amih"        — angular multi-index hashing (§5): the device walk
+                    (``probe_backend="device"``, the default: ONE kernel
+                    launch per batch plus at most one scan launch), or the
+                    host walk (``probe_backend="host"``) with
+                    ``verify_backend="cuda"`` (the default) or ``"numpy"``.
+
+Backends and options of layers not ported yet raise
+``NotImplementedError`` naming their ROADMAP item: ``single_table`` (A5),
+``sharded_scan``/``sharded_amih`` (A6), ``cluster`` (A9),
+``compute_backend="pallas"`` (A4) and ``overlap_verify=True`` (A7).
+
+Both backends are EXACT and return, for every row, the reference's ids and
+float64 sims. Entry points that need a device take ``device=``: ``None``
+means the CUDA device (and raises where there is none); ``"cpu"`` runs the
+kernels' plain PyTorch versions. Only the host walk with
+``verify_backend="numpy"``, asked for explicitly, needs no device.
+"""
+
+from __future__ import annotations
+
+import abc
+import sys
+from collections import OrderedDict
+from dataclasses import dataclass, field, fields as dc_fields, replace
+from typing import Any, ClassVar, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..obs import trace as _obs
+from .amih import AMIHIndex, AMIHStats
+from .linear_scan import sims_batch_against_db, topk_from_sims
+from .packing import WORD_DTYPE, n_words
+
+__all__ = [
+    "ENGINES",
+    "EngineStats",
+    "SearchEngine",
+    "SearchStats",
+    "available_backends",
+    "make_engine",
+    "probe_cache_snapshot",
+    "register_engine",
+]
+
+# backends of layers the port does not have yet -> their ROADMAP item
+_NOT_PORTED = {
+    "single_table": "A5",
+    "sharded_scan": "A6",
+    "sharded_amih": "A6",
+    "cluster": "A9",
+}
+
+
+@dataclass
+class SearchStats:
+    """Per-query counters of the exhaustive scan (the reference's
+    single-table ``SearchStats``; the scan fills ``retrieved``)."""
+
+    probes: int = 0
+    retrieved: int = 0
+    tuples_processed: int = 0
+    max_radius: int = 0
+    exceeded_rhat: bool = False
+    fell_back_to_scan: bool = False
+
+
+@dataclass
+class EngineStats:
+    """Batched-search accounting: one stats object per query row plus
+    lazily-aggregated totals (``aggregate`` sums every numeric counter;
+    bools count occurrences; ``max_radius`` aggregates with max).
+    ``cache_hits`` counts rows answered from the engine's hot-query cache;
+    ``cache_info`` snapshots the process-wide probing caches."""
+
+    backend: str
+    queries: int = 0
+    per_query: List[Optional[object]] = field(default_factory=list)
+    cache_hits: int = 0
+    cache_info: Dict[str, int] = field(default_factory=dict)
+
+    _MAX_COUNTERS = frozenset({"max_radius"})
+
+    def aggregate(self) -> Dict[str, int]:
+        totals: Dict[str, int] = {}
+        for s in self.per_query:
+            if s is None:
+                continue
+            for f in dc_fields(s):
+                v = getattr(s, f.name)
+                if not isinstance(v, (bool, int, np.bool_, np.integer)):
+                    continue
+                if f.name in self._MAX_COUNTERS:
+                    totals[f.name] = max(totals.get(f.name, 0), int(v))
+                else:
+                    totals[f.name] = totals.get(f.name, 0) + int(v)
+        return totals
+
+    def total(self, counter: str) -> int:
+        return self.aggregate().get(counter, 0)
+
+
+class SearchEngine(abc.ABC):
+    """Exact batched angular-KNN engine over packed binary codes."""
+
+    name: ClassVar[str]
+
+    #: the Tracer handed to ``make_engine(..., tracer=...)``, if any
+    tracer = None
+
+    @classmethod
+    @abc.abstractmethod
+    def build(
+        cls, db_words: np.ndarray, p: int, **cfg: Any
+    ) -> "SearchEngine":
+        ...
+
+    @abc.abstractmethod
+    def knn_batch(
+        self, q_words: np.ndarray, k: int
+    ) -> Tuple[np.ndarray, np.ndarray, EngineStats]:
+        """Exact batched angular KNN: (B, W) packed queries ->
+        (ids (B, k'), sims (B, k'), stats) with k' = min(k, n); ids are
+        int64 row indices sorted by descending float64 sim."""
+        ...
+
+    @property
+    @abc.abstractmethod
+    def n(self) -> int:
+        ...
+
+    def _check_queries(self, q_words: np.ndarray, p: int) -> np.ndarray:
+        q = np.atleast_2d(np.asarray(q_words, dtype=WORD_DTYPE))
+        if q.ndim != 2 or q.shape[1] != n_words(p):
+            raise ValueError(
+                f"queries must be (B, {n_words(p)}) packed words for "
+                f"p={p}; got shape {np.asarray(q_words).shape}"
+            )
+        return np.ascontiguousarray(q)
+
+
+def probe_cache_snapshot() -> Dict[str, int]:
+    """Occupancy + lifetime hit/miss counters of the process-wide probing
+    caches: the (p, z) sequence cache, plus the device schedule cache once
+    the device path has been imported."""
+    from .probing import _cache_stats
+
+    out: Dict[str, int] = dict(_cache_stats())
+    mod = sys.modules.get(__package__ + ".probe_device")
+    if mod is not None:
+        out.update(mod.schedule_cache_stats())
+    return out
+
+
+ENGINES: Dict[str, type] = {}
+
+
+def register_engine(cls: type) -> type:
+    ENGINES[cls.name] = cls
+    return cls
+
+
+def available_backends() -> List[str]:
+    return sorted(ENGINES)
+
+
+def make_engine(
+    backend: str, db_words: np.ndarray, p: int, **cfg: Any
+) -> SearchEngine:
+    """Build a search engine by backend name.
+
+    ``db_words`` is the packed (n, W) uint32 code array, ``p`` the code
+    length in bits; ``cfg`` goes to the backend's ``build`` (unknown keys
+    raise ``TypeError``):
+
+      - "linear_scan" — ``chunk``.
+      - "amih"        — ``m``, ``verify_backend`` ("cuda" | "numpy"),
+                        ``probe_backend`` ("device" | "host"),
+                        ``probe_fused``, ``probe_stream_cap``,
+                        ``enumeration_cap``, ``query_cache_size``,
+                        ``device``.
+
+    ``tracer=`` (a ``repro_torch.obs.trace.Tracer``) is installed as the
+    process tracer and attached to the engine as ``engine.tracer``.
+    """
+    tracer = cfg.pop("tracer", None)
+    if tracer is not None:
+        _obs.set_tracer(tracer)
+    if backend in _NOT_PORTED:
+        raise NotImplementedError(
+            f"backend {backend!r} is not ported yet: "
+            f"ROADMAP {_NOT_PORTED[backend]}"
+        )
+    cls = ENGINES.get(backend)
+    if cls is None:
+        raise ValueError(
+            f"unknown search backend {backend!r}; "
+            f"available: {available_backends()}"
+        )
+    eng = cls.build(db_words, p, **cfg)
+    eng.tracer = tracer
+    return eng
+
+
+@register_engine
+class LinearScanEngine(SearchEngine):
+    """Exhaustive baseline: batched float64 Eq. 3 sims + per-row
+    deterministic top-k (the selection code of ``linear_scan_knn``)."""
+
+    name = "linear_scan"
+
+    # Cap on live sims-matrix elements: query rows are processed in
+    # groups of max(1, _SIMS_BUDGET // n) so peak scratch stays ~64 MB.
+    _SIMS_BUDGET = 1 << 23
+
+    def __init__(self, db_words: np.ndarray, p: int, chunk: int):
+        self.db_words = np.ascontiguousarray(db_words, dtype=WORD_DTYPE)
+        self.p = p
+        self.chunk = chunk
+
+    @classmethod
+    def build(
+        cls,
+        db_words: np.ndarray,
+        p: int,
+        chunk: int = 1 << 15,
+        compute_backend: str = "numpy",
+        **cfg: Any,
+    ) -> "LinearScanEngine":
+        if cfg:
+            raise TypeError(f"unknown linear_scan options: {sorted(cfg)}")
+        if compute_backend != "numpy":
+            raise NotImplementedError(
+                f"compute_backend={compute_backend!r} (the device scan "
+                f"kernels) is not ported yet: ROADMAP A4"
+            )
+        return cls(db_words, p, chunk)
+
+    @property
+    def n(self) -> int:
+        return self.db_words.shape[0]
+
+    def knn_batch(self, q_words, k):
+        q = self._check_queries(q_words, self.p)
+        B = q.shape[0]
+        k_eff = min(k, self.n)
+        with _obs.current().span("engine.knn_batch", cat="engine",
+                                 backend=self.name, B=B, k=k_eff):
+            ids_out = np.empty((B, k_eff), dtype=np.int64)
+            sims_out = np.empty((B, k_eff), dtype=np.float64)
+            group = max(1, self._SIMS_BUDGET // max(self.n, 1))
+            for lo in range(0, B, group):
+                sims = sims_batch_against_db(
+                    q[lo : lo + group], self.db_words, chunk=self.chunk
+                )
+                for i in range(sims.shape[0]):
+                    ids_out[lo + i], sims_out[lo + i] = topk_from_sims(
+                        sims[i], k_eff
+                    )
+            stats = EngineStats(
+                backend=self.name, queries=B,
+                per_query=[SearchStats(retrieved=self.n) for _ in range(B)],
+            )
+            return ids_out, sims_out, stats
+
+
+@register_engine
+class AMIHEngine(SearchEngine):
+    """Angular multi-index hashing (paper §5): batch-aware probing with
+    per-(p, z) probing-sequence sharing, on the host walk or the device
+    walk.
+
+    ``enumeration_cap`` bounds a single substring-tuple's bucket
+    enumeration on the host walk before the query degrades to an exact
+    full scan (default ``max(8n, 16384)``).
+
+    Hot-query cache: ``knn_batch`` memoizes per (code bytes, k) in a
+    bounded LRU (``query_cache_size`` entries, 0 disables). Hits skip
+    probing entirely and are counted in ``EngineStats.cache_hits``; the
+    cached counters are replayed (copied) so per-query accounting stays
+    identical to an uncached run. Duplicate rows inside one batch are
+    computed once.
+    """
+
+    name = "amih"
+
+    def __init__(self, index: AMIHIndex, enumeration_cap,
+                 query_cache_size: int = 256):
+        self.index = index
+        self.p = index.p
+        self.enumeration_cap = enumeration_cap
+        self.query_cache_size = query_cache_size
+        # (q_words bytes, k) -> (ids row, sims row, AMIHStats); ordered
+        # oldest-first so popitem(last=False) evicts the LRU entry.
+        self._query_cache: "OrderedDict[Tuple[bytes, int], tuple]" = (
+            OrderedDict()
+        )
+        self.cache_hits = 0
+
+    @classmethod
+    def build(
+        cls,
+        db_words: np.ndarray,
+        p: int,
+        m: Optional[int] = None,
+        verify_backend: str = "cuda",
+        enumeration_cap: Optional[int] = None,
+        query_cache_size: int = 256,
+        overlap_verify: bool = False,
+        probe_backend: str = "device",
+        probe_stream_cap: int = 1 << 16,
+        probe_fused: bool = True,
+        device=None,
+        **cfg: Any,
+    ) -> "AMIHEngine":
+        if cfg:
+            raise TypeError(f"unknown amih options: {sorted(cfg)}")
+        if overlap_verify:
+            raise NotImplementedError(
+                "overlap_verify=True (the pipelined verify) is not ported "
+                "yet: ROADMAP A7"
+            )
+        n = np.asarray(db_words).shape[0]
+        if enumeration_cap is None:
+            enumeration_cap = max(8 * n, 1 << 14)
+        index = AMIHIndex.build(
+            db_words, p, m=m, verify_backend=verify_backend,
+            probe_backend=probe_backend, probe_stream_cap=probe_stream_cap,
+            probe_fused=probe_fused, device=device,
+        )
+        return cls(index, enumeration_cap, query_cache_size)
+
+    @property
+    def n(self) -> int:
+        return self.index.n
+
+    def knn_batch(self, q_words, k):
+        q = self._check_queries(q_words, self.p)
+        B = q.shape[0]
+        k_eff = min(k, self.n)
+        with _obs.current().span("engine.knn_batch", cat="engine",
+                                 backend=self.name, B=B, k=k_eff):
+            return self._knn_batch_traced(q, B, k_eff)
+
+    def _knn_batch_traced(self, q, B, k_eff):
+        cache = self._query_cache if self.query_cache_size > 0 else None
+        per_query: List[Optional[AMIHStats]] = [None] * B
+        ids_out = np.empty((B, k_eff), dtype=np.int64)
+        sims_out = np.empty((B, k_eff), dtype=np.float64)
+        hits = 0
+        miss_keys: Dict[bytes, List[int]] = {}
+        for i in range(B):
+            key = q[i].tobytes()
+            cached = cache.get((key, k_eff)) if cache is not None else None
+            if cached is not None:
+                cache.move_to_end((key, k_eff))
+                c_ids, c_sims, c_stats = cached
+                ids_out[i], sims_out[i] = c_ids, c_sims
+                per_query[i] = replace(c_stats)
+                hits += 1
+            else:
+                miss_keys.setdefault(key, []).append(i)
+
+        if miss_keys:
+            rows = [idxs[0] for idxs in miss_keys.values()]
+            miss_stats = [AMIHStats() for _ in rows]
+            m_ids, m_sims = self.index.knn_batch(
+                q[rows], k_eff, stats=miss_stats,
+                enumeration_cap=self.enumeration_cap,
+            )
+            for j, (key, idxs) in enumerate(miss_keys.items()):
+                for i in idxs:
+                    ids_out[i], sims_out[i] = m_ids[j], m_sims[j]
+                    per_query[i] = replace(miss_stats[j])
+                if cache is not None:
+                    cache[(key, k_eff)] = (
+                        m_ids[j].copy(), m_sims[j].copy(), miss_stats[j]
+                    )
+                    while len(cache) > self.query_cache_size:
+                        cache.popitem(last=False)
+
+        self.cache_hits += hits
+        return ids_out, sims_out, EngineStats(
+            backend=self.name, queries=B, per_query=per_query,
+            cache_hits=hits, cache_info=probe_cache_snapshot(),
+        )

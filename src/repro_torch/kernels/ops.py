@@ -1,0 +1,384 @@
+"""The launch layer: padding, placement and launch accounting around the
+port's kernels (the counterpart of the reference's ``kernels/ops.py``).
+
+Every launch bumps ``launches.<op>`` in the port's metrics registry at the
+same site as the reference: ``verify_grouped`` (the host walk's grouped
+verify), ``device_probe`` (one probing walk) and ``device_probe_scan`` (one
+exhaustive fallback scan), plus ``launches.device.<device>``. Launch sites
+record ``launch.*`` spans when tracing is on.
+
+Shapes keep the reference's power-of-two padding (``pad_bucket``) even
+though eager PyTorch has no trace cache to bound: the walk's iteration
+budget depends on the padded batch, the budget decides which queries bail
+to the scan, and that decides ``probes``, ``retrieved`` and
+``fell_back_to_scan``. Padded query rows start with ``t_stop = -1`` and
+gid 0 (born done), exactly as in the reference.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..obs import trace as _obs
+from ..obs.metrics import REGISTRY as _REG
+from . import device_probe
+from .verify_tuples import gather_verify_grouped
+
+__all__ = [
+    "PendingKeys",
+    "PendingWalk",
+    "device_key",
+    "device_probe_scan_launch",
+    "device_probe_scan_multi_launch",
+    "device_probe_walk_batched_launch",
+    "device_probe_walk_launch",
+    "pad_bucket",
+    "resolve_device",
+    "to_device",
+    "verify_tuples_grouped_launch",
+]
+
+_LOCK = threading.Lock()
+
+
+def _bump_launch(op: str, dkey: str) -> None:
+    """One device dispatch of ``op``: bump ``launches.<op>`` and the
+    per-device split ``launches.device.<dkey>``."""
+    _REG.counter("launches." + op).add(1)
+    _REG.counter("launches.device." + dkey).add(1)
+
+
+def device_key(device) -> str:
+    """Stable string key of a placement device."""
+    return str(torch.device(device))
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for another. ``None`` means ``cuda``, and raises ``RuntimeError``
+    where no CUDA device is available (it never falls back to the CPU)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as an int32 tensor on ``device`` (uint32 words are
+    viewed as int32 over the same bits)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype != np.int32:
+        a = a.astype(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+def pad_bucket(size: int, minimum: int = 8) -> int:
+    """Next power of two >= max(size, minimum)."""
+    target = max(int(size), minimum, 1)
+    return 1 << (target - 1).bit_length()
+
+
+def _pad_rows(a, Bp: int, fill=0) -> np.ndarray:
+    a = np.asarray(a)
+    out = np.full((Bp,) + a.shape[1:], fill, dtype=a.dtype)
+    out[: a.shape[0]] = a
+    return out
+
+
+# ------------------------------------------------------------ grouped verify
+class PendingKeys:
+    """Handle for an in-flight grouped-verify launch: ``get()`` copies the
+    unpadded (B, C) keys to the host (waiting for the kernel)."""
+
+    __slots__ = ("_keys", "_B", "_C", "_dkey")
+
+    def __init__(self, keys, B: int, C: int, dkey: str = "cpu"):
+        self._keys = keys
+        self._B = B
+        self._C = C
+        self._dkey = dkey
+
+    def get(self) -> np.ndarray:
+        keys = self._keys
+        if isinstance(keys, np.ndarray):
+            return keys
+        tr = _obs.current()
+        t0 = _obs.now_us() if tr.enabled else 0.0
+        out = keys[: self._B, : self._C].cpu().numpy()
+        if tr.enabled:
+            tr.record("launch.verify_grouped.resolve", t0, _obs.now_us(),
+                      cat="kernel", device=self._dkey)
+        return out
+
+
+def verify_tuples_grouped_launch(
+    q_words, db_dev, cand_idx, lengths, *, p: int, device,
+) -> PendingKeys:
+    """Pad to power-of-two (B, C) buckets, place on ``device`` and launch
+    the grouped verify against the resident codes ``db_dev``, without
+    waiting for it. Returns a ``PendingKeys`` handle."""
+    idx = np.ascontiguousarray(np.asarray(cand_idx, dtype=np.int32))
+    lens = np.asarray(lengths, dtype=np.int32)
+    B, C = idx.shape
+    if C == 0 or B == 0:
+        return PendingKeys(np.full((B, C), -1, dtype=np.int32), B, C)
+    Bp = pad_bucket(B, minimum=1)
+    Cp = pad_bucket(C, minimum=8)
+    idxp = np.zeros((Bp, Cp), dtype=np.int32)
+    idxp[:B, :C] = idx
+    lensp = np.zeros(Bp, dtype=np.int32)
+    lensp[:B] = lens
+    qp = _pad_rows(np.asarray(q_words, dtype=np.uint32), Bp)
+    dkey = device_key(device)
+    _bump_launch("verify_grouped", dkey)
+    with _obs.current().span("launch.verify_grouped.dispatch",
+                             cat="kernel", device=dkey, B=B, C=C):
+        keys = gather_verify_grouped(
+            to_device(qp, device), db_dev, to_device(idxp, device),
+            to_device(lensp, device), p=p,
+        )
+    return PendingKeys(keys, B, C, dkey)
+
+
+# ----------------------------------------------------------- probing walks
+def _walk_shape(tile, cap, check_every):
+    from ..core.probe_device import (
+        DEFAULT_CHECK_EVERY,
+        DEFAULT_PROBE_CAP,
+        DEFAULT_TILE,
+    )
+
+    tile = DEFAULT_TILE if tile is None else tile
+    if tile > DEFAULT_TILE:
+        raise ValueError(
+            f"tile={tile} exceeds the schedule pad margin {DEFAULT_TILE}"
+        )
+    cap = pad_bucket(DEFAULT_PROBE_CAP if cap is None else cap, minimum=8)
+    check_every = (
+        DEFAULT_CHECK_EVERY if check_every is None else max(1, check_every)
+    )
+    return tile, cap, check_every
+
+
+def device_probe_walk_launch(
+    q_words, q_sub, z_sub, pow1, pow0, t_stop, k: int, *, sched, csr, p: int,
+    device, tile: Optional[int] = None, cap: Optional[int] = None,
+    check_every: Optional[int] = None, walk_budget: Optional[int] = None,
+) -> dict:
+    """One z-group's fused walk launch. Per-call arrays are padded to a
+    power-of-two batch and placed on ``device``. ``walk_budget`` defaults
+    to ``max(4, n_pad // (4 * cap))``: past that many iterations the walk
+    has spent a quarter of an exhaustive scan. Returns {"posmap" (B,
+    n_pad) device tensor, "probes", "retrieved", "done" (B,) host arrays,
+    "cursor" int, "iters" int}."""
+    from ..core.probe_device import KMAX
+
+    tile, cap, check_every = _walk_shape(tile, cap, check_every)
+    if walk_budget is None:
+        walk_budget = max(4, int(csr["n_pad"]) // (4 * cap))
+    qh = np.ascontiguousarray(np.asarray(q_words))
+    B = qh.shape[0]
+    Bp = pad_bucket(B, minimum=1)
+    per_call = [
+        to_device(_pad_rows(a, Bp, fill), device)
+        for a, fill in (
+            (qh, 0), (q_sub, 0), (z_sub, 0), (pow1, 0), (pow0, 0),
+            (np.asarray(t_stop, dtype=np.int32), -1),
+        )
+    ]
+    bundle = sched.device_arrays(device)
+    dkey = device_key(device)
+    _bump_launch("device_probe", dkey)
+    with _obs.current().span("launch.device_probe", cat="kernel",
+                             device=dkey, B=B):
+        posmap, probes, retrieved, done, cursor, iters = (
+            device_probe.device_probe_walk(
+                *per_call, k, sched.s_len, walk_budget,
+                bundle["tbl"], bundle["step_ext"], bundle["idx1"],
+                bundle["idx0"], bundle["maxi1"], bundle["maxi0"],
+                bundle["widths"], csr["offsets"], csr["ids"], csr["db_pad"],
+                bundle["inv_pos"], p=p, tile=tile, cap=cap, kmax=KMAX,
+                check_every=check_every,
+            )
+        )
+        return {
+            "posmap": posmap[:B],
+            "probes": probes[:B].cpu().numpy(),
+            "retrieved": retrieved[:B].cpu().numpy(),
+            "done": done[:B].cpu().numpy(),
+            "cursor": int(cursor),
+            "iters": int(iters),
+        }
+
+
+def device_probe_scan_launch(q_words, *, sched, csr, p: int, device,
+                             chunk: int = 2048):
+    """One exhaustive verify launch over every stored code for one
+    z-group's queries: a (B, n_pad) device position map."""
+    qh = np.ascontiguousarray(np.asarray(q_words))
+    B = qh.shape[0]
+    Bp = pad_bucket(B, minimum=1)
+    n_pad = csr["n_pad"]
+    chunk = min(pad_bucket(chunk, minimum=8), n_pad)
+    bundle = sched.device_arrays(device)
+    dkey = device_key(device)
+    _bump_launch("device_probe_scan", dkey)
+    with _obs.current().span("launch.device_probe_scan", cat="kernel",
+                             device=dkey, B=B):
+        pm = device_probe.device_probe_scan(
+            to_device(_pad_rows(qh, Bp), device), csr["db_pad"],
+            bundle["inv_pos"], csr["n"], p=p, chunk=chunk,
+        )
+        return pm[:B]
+
+
+# Recycled (B_pad, n_pad) position-map buffers per (device, batch bucket,
+# index size): sustained serving reuses one buffer instead of allocating
+# 4 * B_pad * n_pad bytes per batch. The walk overwrites a buffer whole, so
+# a recycled one needs no clearing. Small cap so odd one-off batch shapes
+# don't pin device memory.
+_POSMAP_POOL: dict = {}
+_POSMAP_POOL_MAX = 2
+
+
+def _take_posmap(device, Bp: int, n_pad: int):
+    key = (device_key(device), Bp, n_pad)
+    with _LOCK:
+        pool = _POSMAP_POOL.get(key)
+        if pool:
+            return key, pool.pop()
+    return key, torch.empty((Bp, n_pad), dtype=torch.int32, device=device)
+
+
+def _recycle_posmap(key, buf) -> None:
+    with _LOCK:
+        pool = _POSMAP_POOL.setdefault(key, [])
+        if len(pool) < _POSMAP_POOL_MAX:
+            pool.append(buf)
+
+
+class PendingWalk:
+    """Handle for an in-flight batch-walk launch. ``get()`` waits for the
+    kernel and returns the result dict; its ``posmap`` is a (B, n_pad) view
+    of the pooled buffer, valid until ``release()`` hands the buffer back
+    to the pool."""
+
+    __slots__ = ("_out", "_B", "_pool_key", "_buf", "_res")
+
+    def __init__(self, out, B: int, pool_key, buf):
+        self._out = out
+        self._B = B
+        self._pool_key = pool_key
+        self._buf = buf
+        self._res = None
+
+    def get(self) -> dict:
+        if self._res is None:
+            tr = _obs.current()
+            t0 = _obs.now_us() if tr.enabled else 0.0
+            posmap, probes, retrieved, done, cursor, iters = self._out
+            B = self._B
+            self._res = {
+                "posmap": posmap[:B],
+                "probes": probes[:B].cpu().numpy(),
+                "retrieved": retrieved[:B].cpu().numpy(),
+                "done": done[:B].cpu().numpy(),
+                "cursor": cursor.cpu().numpy(),
+                "iters": int(iters),
+            }
+            self._out = None
+            if tr.enabled:
+                tr.record("launch.device_probe.resolve", t0, _obs.now_us(),
+                          cat="kernel", device=self._pool_key[0])
+        return self._res
+
+    def release(self) -> None:
+        """Return the position-map buffer to the pool (idempotent)."""
+        buf, self._buf = self._buf, None
+        if buf is not None:
+            self._res = None
+            _recycle_posmap(self._pool_key, buf)
+
+
+def device_probe_walk_batched_launch(
+    q_words, q_sub, z_sub, pow1, pow0, gid, t_stop, k: int, *, stack, csr,
+    p: int, device, tile: Optional[int] = None, cap: Optional[int] = None,
+    check_every: Optional[int] = None, walk_budget: Optional[int] = None,
+) -> PendingWalk:
+    """The fused cross-z-group walk: ONE launch for the whole batch, every
+    z-group included, dispatched without waiting.
+
+    ``walk_budget`` defaults to ``max(4, n_pad // (4 * cap * B_pad))``: an
+    iteration probes a tile for every query, so it costs about B_pad times
+    a per-group iteration while the bail scan covers only the stragglers.
+    """
+    from ..core.probe_device import KMAX
+
+    tile, cap, check_every = _walk_shape(tile, cap, check_every)
+    qh = np.ascontiguousarray(np.asarray(q_words))
+    B = qh.shape[0]
+    Bp = pad_bucket(B, minimum=1)
+    if walk_budget is None:
+        walk_budget = max(4, int(csr["n_pad"]) // (4 * cap * Bp))
+    per_call = [
+        to_device(_pad_rows(a, Bp, fill), device)
+        for a, fill in (
+            (qh, 0), (q_sub, 0), (z_sub, 0), (pow1, 0), (pow0, 0),
+            (np.asarray(gid, dtype=np.int32), 0),
+            (np.asarray(t_stop, dtype=np.int32), -1),
+        )
+    ]
+    bundle = stack.device_arrays(device)
+    pool_key, buf = _take_posmap(device, Bp, int(csr["n_pad"]))
+    dkey = device_key(device)
+    _bump_launch("device_probe", dkey)
+    tr = _obs.current()
+    t0 = _obs.now_us() if tr.enabled else 0.0
+    out = device_probe.device_probe_walk_batched(
+        buf, *per_call, k, walk_budget,
+        bundle["g_start"], bundle["g_end"], bundle["tbl"], bundle["step"],
+        bundle["idx1"], bundle["idx0"], bundle["maxi1"], bundle["maxi0"],
+        bundle["widths"], csr["offsets"], csr["ids"], csr["db_pad"],
+        bundle["inv_pos"], p=p, tile=tile, cap=cap, kmax=KMAX,
+        check_every=check_every,
+    )
+    if tr.enabled:
+        tr.record("launch.device_probe.dispatch", t0, _obs.now_us(),
+                  cat="kernel", device=dkey, B=B)
+    return PendingWalk(out, B, pool_key, buf)
+
+
+def device_probe_scan_multi_launch(q_words, gid, *, stack, csr, p: int,
+                                   device, chunk: int = 2048):
+    """One exhaustive verify launch across every bailed z-group, with a
+    per-query ``gid`` row into the stack's inverse-position tables: a
+    (B, n_pad) device position map."""
+    qh = np.ascontiguousarray(np.asarray(q_words))
+    B = qh.shape[0]
+    Bp = pad_bucket(B, minimum=1)
+    n_pad = csr["n_pad"]
+    chunk = min(pad_bucket(chunk, minimum=8), n_pad)
+    bundle = stack.device_arrays(device)
+    dkey = device_key(device)
+    _bump_launch("device_probe_scan", dkey)
+    with _obs.current().span("launch.device_probe_scan", cat="kernel",
+                             device=dkey, B=B):
+        pm = device_probe.device_probe_scan_multi(
+            to_device(_pad_rows(qh, Bp), device),
+            to_device(_pad_rows(np.asarray(gid, dtype=np.int32), Bp),
+                      device),
+            csr["db_pad"], bundle["inv_pos"], csr["n"], p=p, chunk=chunk,
+        )
+        return pm[:B]

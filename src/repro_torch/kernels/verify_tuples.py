@@ -1,0 +1,65 @@
+"""K1: grouped candidate verification with the row gather fused in.
+
+``gather_verify_grouped`` is the port of the reference's gather +
+``verify_tuples_grouped`` launch (the Pallas kernel body
+``_verify_grouped_kernel`` and the ``jnp.take`` row gather of
+``_gather_verify_grouped_impl``): for query ``b`` and candidate slot
+``c < lengths[b]`` the packed key ``r10 * (p + 1) + r01`` of code
+``db[cand_idx[b, c]]``, and -1 in every padded slot. On a CUDA tensor it
+launches the CUDA kernel (``csrc/verify_grouped.cu``); on a CPU tensor it
+runs ``gather_verify_grouped_plain``, the same function in plain PyTorch.
+The keys are exact integers, so kernel and plain version agree exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import verify_tuples_grouped_ref
+
+__all__ = ["LAUNCHES", "gather_verify_grouped", "gather_verify_grouped_plain"]
+
+# kernel launches so far (bumped where the kernel is launched, nowhere else)
+LAUNCHES = {"verify_grouped": 0}
+
+
+def gather_verify_grouped_plain(q_words, db_words, cand_idx, lengths, p: int):
+    """(B, W), (N, W), (B, C), (B,) int32 -> (B, C) int32 packed keys."""
+    cand = db_words[cand_idx.long()]                 # (B, C, W)
+    return verify_tuples_grouped_ref(q_words, cand, lengths, p)
+
+
+def _launch(lib, q_words, db_words, cand_idx, lengths, out, p: int,
+            stream: int) -> None:
+    B, W = q_words.shape
+    C = cand_idx.shape[1]
+    dev = q_words.device
+    if B > 65535:
+        raise ValueError(f"B={B} exceeds the kernel's grid rows (65535)")
+    ptrs = [
+        _build.require(q_words, "q_words", (B, W), dev),
+        _build.require(db_words, "db_words", (db_words.shape[0], W), dev),
+        _build.require(cand_idx, "cand_idx", (B, C), dev),
+        _build.require(lengths, "lengths", (B,), dev),
+        _build.require(out, "out", (B, C), dev),
+    ]
+    _build.call(lib, "verify_grouped", ptrs, [B, C, W, p], stream)
+
+
+def gather_verify_grouped(q_words, db_words, cand_idx, lengths, *, p: int):
+    """Packed bucket keys of the candidates ``db_words[cand_idx]``:
+    (B, W), (N, W), (B, C), (B,) int32 -> (B, C) int32. Candidate rows are
+    gathered inside the kernel: only the index matrix crosses to it."""
+    if q_words.device.type == "cpu":
+        return gather_verify_grouped_plain(
+            q_words, db_words, cand_idx, lengths, p
+        )
+    if q_words.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q_words.device}")
+    out = torch.empty(cand_idx.shape, dtype=torch.int32,
+                      device=q_words.device)
+    _launch(_build.load("verify_grouped"), q_words, db_words, cand_idx,
+            lengths, out, p, _build.stream_of(q_words.device))
+    LAUNCHES["verify_grouped"] += 1
+    return out

@@ -1,0 +1,142 @@
+// A CPU emulation of the CUDA subset the port's kernels use, so their
+// sources compile with g++ and run on the CPU (tests/test_torch_emulated.py).
+//
+// One block runs as std::threads (blockDim threads); __syncthreads is a
+// barrier over the block, warp shuffles exchange through a per-warp buffer
+// between two warp barriers, atomics are the compiler's. A cooperative
+// launch runs as ONE block, so a grid sync is a block barrier and
+// __shared__ (made `static`) is block memory; an ordinary launch runs its
+// blocks one after another. Enough to hold a kernel's logic against its
+// plain PyTorch version; timing, occupancy and the real compiler are the
+// card's business.
+#pragma once
+#include <atomic>
+#include <barrier>
+#include <cstddef>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__ __restrict
+#define __launch_bounds__(x)
+#define __shared__ static
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct int2 { int x, y; };
+struct int4 { int x, y, z, w; };
+inline int2 make_int2(int a, int b) { return {a, b}; }
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum {
+  cudaSuccess = 0,
+  cudaErrorCooperativeLaunchTooLarge = 720,
+  cudaDevAttrMultiProcessorCount = 16
+};
+
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+// threads of the one block an emulated cooperative launch runs
+constexpr unsigned kEmuCoopThreads = 64;
+
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int atomicMin(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v < old && !__atomic_compare_exchange_n(
+                        p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline int atomicSub(int* p, int v) { return __atomic_fetch_sub(p, v, __ATOMIC_SEQ_CST); }
+
+struct EmuBlock {
+  std::barrier<>* bar;
+  std::vector<std::barrier<>*> warp_bar;
+  int buf[64][32];
+  std::atomic<int> red;
+};
+inline EmuBlock* emu_block;
+
+inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
+inline int emu_reduce(int p, bool count) {
+  __syncthreads();
+  if (threadIdx.x == 0) emu_block->red = 0;
+  __syncthreads();
+  if (p) {
+    if (count) emu_block->red.fetch_add(1); else emu_block->red.fetch_or(1);
+  }
+  __syncthreads();
+  const int r = emu_block->red;
+  __syncthreads();
+  return r;
+}
+inline int __syncthreads_or(int p) { return emu_reduce(p, false); }
+inline int __syncthreads_count(int p) { return emu_reduce(p, true); }
+inline int emu_shfl(int v, int delta) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  emu_block->buf[w][l] = v;
+  emu_block->warp_bar[w]->arrive_and_wait();
+  const int s = l + delta;
+  const int r = (s >= 0 && s < 32) ? emu_block->buf[w][s] : v;
+  emu_block->warp_bar[w]->arrive_and_wait();
+  return r;
+}
+inline int __shfl_up_sync(unsigned, int v, int o) { return emu_shfl(v, -o); }
+inline int __shfl_down_sync(unsigned, int v, int o) { return emu_shfl(v, o); }
+
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return 0;
+}
+inline cudaError_t cudaGetLastError() { return 0; }
+
+template <class A>
+cudaError_t emu_run(void (*f)(A), dim3 g, dim3 b, void** args) {
+  const A a = *reinterpret_cast<A*>(args[0]);
+  blockDim = b;
+  gridDim = g;
+  for (unsigned by = 0; by < g.y; ++by) {
+    for (unsigned bx = 0; bx < g.x; ++bx) {
+      EmuBlock blk;
+      blk.bar = new std::barrier<>(b.x);
+      for (unsigned w = 0; w < (b.x + 31) / 32; ++w)
+        blk.warp_bar.push_back(new std::barrier<>(32));
+      emu_block = &blk;
+      std::vector<std::thread> ts;
+      for (unsigned t = 0; t < b.x; ++t)
+        ts.emplace_back([=]() {
+          threadIdx = dim3(t);
+          blockIdx = dim3(bx, by);
+          f(a);
+        });
+      for (auto& t : ts) t.join();
+      delete blk.bar;
+      for (auto* w : blk.warp_bar) delete w;
+    }
+  }
+  return 0;
+}
+
+template <class A>
+cudaError_t cudaLaunchCooperativeKernel(void (*f)(A), dim3, dim3, void** args,
+                                        size_t, cudaStream_t) {
+  return emu_run(f, dim3(1), dim3(kEmuCoopThreads), args);
+}
+template <class A>
+cudaError_t cudaLaunchKernel(void (*f)(A), dim3 g, dim3 b, void** args,
+                             size_t, cudaStream_t) {
+  return emu_run(f, g, b, args);
+}

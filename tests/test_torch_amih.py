@@ -1,0 +1,190 @@
+"""The port's AMIH engine against the JAX package's, on the CPU.
+
+``make_engine("amih", ..., device="cpu")`` of the port and the reference's
+``make_engine("amih", ...)`` search the same codes; ids, float64 sims,
+per-query ``AMIHStats``, ``index.verify_launches`` and the ``launches.*``
+counter deltas must be equal — for the device walk (``probe_backend=
+"device"``, the kernels' plain versions on the CPU) and the host walk
+(``verify_backend="numpy"``, and ``"cuda"`` against the reference's
+``"pallas"``)."""
+
+from dataclasses import asdict
+
+import numpy as np
+import pytest
+
+from repro.core import pack_bits
+from repro.core.amih import AMIHIndex as RIndex
+from repro.core.engine import make_engine as r_make
+from repro.obs.metrics import REGISTRY as R_REG
+from repro_torch.convert import index_from_reference, index_state
+from repro_torch.core.amih import AMIHIndex as TIndex
+from repro_torch.core.amih import AMIHStats as TStats
+from repro_torch.core.engine import AMIHEngine
+from repro_torch.core.engine import make_engine as t_make
+from repro_torch.obs.metrics import REGISTRY as T_REG
+
+_COUNTERS = ("launches.device_probe", "launches.device_probe_scan",
+             "launches.verify_grouped")
+
+
+def _data(n, p, B, seed, near=True):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 2, size=(n, p)).astype(np.uint8)
+    if near:
+        q = base[rng.integers(0, n, size=B)].copy()
+        for i in range(B):
+            q[i, rng.choice(p, size=1 + i % 6, replace=False)] ^= 1
+    else:
+        q = rng.integers(0, 2, size=(B, p)).astype(np.uint8)
+    return pack_bits(base), pack_bits(q)
+
+
+def _deltas(reg, before):
+    return {c: reg.value(c) - before[c] for c in _COUNTERS}
+
+
+def _run_both(r_eng, t_eng, q, k):
+    r0 = {c: R_REG.value(c) for c in _COUNTERS}
+    t0 = {c: T_REG.value(c) for c in _COUNTERS}
+    ri, rs, rst = r_eng.knn_batch(q, k)
+    ti, ts, tst = t_eng.knn_batch(q, k)
+    assert np.array_equal(ri, ti)
+    assert np.array_equal(rs, ts)
+    assert [asdict(s) for s in rst.per_query] == \
+        [asdict(s) for s in tst.per_query]
+    assert _deltas(R_REG, r0) == _deltas(T_REG, t0)
+    assert r_eng.index.verify_launches == t_eng.index.verify_launches
+    return ti, ts, tst
+
+
+@pytest.mark.parametrize(
+    "p,B,n,k",
+    [(32, 1, 300, 5), (32, 64, 400, 9), (64, 8, 500, 10), (64, 64, 600, 10),
+     (128, 8, 300, 7), (128, 1, 300, 40)],
+)
+def test_device_walk_engine_equals_reference(p, B, n, k):
+    db, q = _data(n, p, B, seed=p * 7 + B)
+    q[0] = 0                                        # a zero-norm query
+    r_eng = r_make("amih", db, p, probe_backend="device", query_cache_size=0)
+    t_eng = t_make("amih", db, p, probe_backend="device", query_cache_size=0,
+                   device="cpu")
+    _run_both(r_eng, t_eng, q, k)
+
+
+@pytest.mark.parametrize("p,B,n", [(32, 8, 300), (64, 64, 500), (128, 1, 200)])
+def test_host_walk_engine_equals_reference(p, B, n):
+    db, q = _data(n, p, B, seed=p + B, near=False)
+    q[-1] = 0
+    r_eng = r_make("amih", db, p, probe_backend="host",
+                   verify_backend="numpy")
+    t_eng = t_make("amih", db, p, probe_backend="host",
+                   verify_backend="numpy")
+    _run_both(r_eng, t_eng, q, 6)
+    _run_both(r_eng, t_eng, q, 6)                   # hot-query cache hits
+
+
+def test_host_walk_cuda_verify_equals_pallas():
+    p, n, B = 64, 400, 8
+    db, q = _data(n, p, B, seed=17)
+    r_eng = r_make("amih", db, p, verify_backend="pallas")
+    t_eng = t_make("amih", db, p, probe_backend="host", verify_backend="cuda",
+                   device="cpu")
+    _run_both(r_eng, t_eng, q, 8)
+
+
+def test_k_larger_than_n_and_truncated_stream():
+    p, n = 32, 90
+    db, q = _data(n, p, 6, seed=23)
+    for cap in (1 << 16, 64):
+        r_eng = r_make("amih", db, p, probe_backend="device",
+                       probe_stream_cap=cap, query_cache_size=0)
+        t_eng = t_make("amih", db, p, probe_backend="device",
+                       probe_stream_cap=cap, query_cache_size=0,
+                       device="cpu")
+        _, _, st = _run_both(r_eng, t_eng, q, n + 50)
+    assert any(s.fell_back_to_scan for s in st.per_query)
+
+
+def test_fused_equals_per_group_launches():
+    p, n, B = 64, 800, 24
+    db, q = _data(n, p, B, seed=31)
+    t_eng = t_make("amih", db, p, probe_backend="device", query_cache_size=0,
+                   device="cpu")
+    before = T_REG.value("launches.device_probe")
+    ids, sims, _ = t_eng.knn_batch(q, 8)
+    assert T_REG.value("launches.device_probe") - before == 1
+    t_eng.index.probe_fused = False
+    ids2, sims2, _ = t_eng.knn_batch(q, 8)
+    assert np.array_equal(ids, ids2) and np.array_equal(sims, sims2)
+
+
+@pytest.mark.parametrize("backend", ["device", "host"])
+def test_bounded_search_equals_reference(backend):
+    p, n, B, k = 64, 500, 16, 8
+    db, q = _data(n, p, B, seed=21, near=False)
+    ref = RIndex.build(db, p, probe_backend=backend)
+    port = index_from_reference(index_state(ref), probe_backend=backend,
+                                verify_backend="numpy", device="cpu")
+    for bound in (-np.inf, 0.4, 1.01):
+        bounds = np.full(B, bound)
+        rs = ref.knn_batch_bounded(q, k, stop_below=bounds)
+        got = []
+        ts = port.knn_batch_bounded(
+            q, k, stop_below=bounds, stats=[TStats() for _ in range(B)],
+            on_done=lambda qi, ids, sims: got.append(qi),
+        )
+        for (ri, rsim), (ti, tsim) in zip(rs, ts):
+            assert np.array_equal(ri, ti) and np.array_equal(rsim, tsim)
+        assert sorted(got) == sorted(
+            i for i, (ti, _) in enumerate(ts) if ti.size >= k)
+
+
+def test_index_from_reference_round_trip():
+    p, n = 128, 300
+    db, q = _data(n, p, 5, seed=2)
+    ref = RIndex.build(db, p, m=8, id_offset=1000, probe_backend="host",
+                       verify_backend="numpy")
+    state = index_state(ref)
+    port = index_from_reference(state, probe_backend="host",
+                                verify_backend="numpy")
+    own = TIndex.build(db, p, m=8, id_offset=1000, probe_backend="host",
+                       verify_backend="numpy")
+    back = index_state(port)
+    for st2 in (back, index_state(own)):
+        assert {k: st2[k] for k in ("p", "m", "id_offset")} == \
+            {k: state[k] for k in ("p", "m", "id_offset")}
+        assert np.array_equal(st2["db_words"], state["db_words"])
+        for a, b in zip(st2["tables"], state["tables"]):
+            assert (a["lo"], a["hi"]) == (b["lo"], b["hi"])
+            assert np.array_equal(a["sorted_vals"], b["sorted_vals"])
+            assert np.array_equal(a["sorted_ids"], b["sorted_ids"])
+    ri, rs = ref.knn_batch(q, 9)
+    ti, ts = port.knn_batch(q, 9)
+    assert np.array_equal(ri, ti) and np.array_equal(rs, ts)
+    bad = dict(state, tables=state["tables"][:-1])
+    with pytest.raises(ValueError):
+        index_from_reference(bad)
+
+
+def test_linear_scan_engine_equals_reference():
+    db, q = _data(400, 64, 6, seed=4)
+    ri, rs, _ = r_make("linear_scan", db, 64).knn_batch(q, 12)
+    ti, ts, _ = t_make("linear_scan", db, 64).knn_batch(q, 12)
+    assert np.array_equal(ri, ti) and np.array_equal(rs, ts)
+
+
+def test_layers_not_ported_raise():
+    db, _ = _data(64, 32, 1, seed=0)
+    for backend, item in (("single_table", "A5"), ("sharded_amih", "A6"),
+                          ("sharded_scan", "A6"), ("cluster", "A9")):
+        with pytest.raises(NotImplementedError, match=item):
+            t_make(backend, db, 32)
+    with pytest.raises(NotImplementedError, match="A7"):
+        t_make("amih", db, 32, overlap_verify=True)
+    with pytest.raises(NotImplementedError, match="A4"):
+        t_make("linear_scan", db, 32, compute_backend="pallas")
+    eng = t_make("amih", db, 32, device="cpu")
+    assert isinstance(eng, AMIHEngine)
+    with pytest.raises(NotImplementedError, match="A7"):
+        eng.index.knn_batch(db[:1], 3, overlap=object())

@@ -1,0 +1,156 @@
+"""The port's CUDA kernel sources, compiled with g++ against a CPU
+emulation of the CUDA subset they use (``tests/cuda_emu/``), held against
+their plain PyTorch versions on the CPU by equality.
+
+The emulation runs a cooperative launch as one block of threads (a grid
+sync is then a block barrier), so it checks each kernel's arithmetic,
+phase order, scans and atomics — not its speed, its multi-block
+distribution or the real compiler, which only the card has. The tests
+skip where no ``g++`` is installed.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.engine import make_engine
+from repro_torch.data.synthetic import (
+    synthetic_binary_codes_packed,
+    synthetic_queries_packed,
+)
+from repro_torch.kernels import _build
+from repro_torch.kernels import device_probe as dp
+from repro_torch.kernels import verify_tuples as vt
+
+EMU = Path(__file__).resolve().parent / "cuda_emu"
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernels for the CPU emulation")
+    out = tmp_path_factory.mktemp("cuda_emu")
+    procs = {}
+    for name, src in _build.KERNELS.items():
+        lib = out / f"lib{name}.so"
+        cmd = [gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+               "-Wno-unknown-pragmas", f"-I{EMU}", "-x", "c++",
+               str(_build.CSRC / src), "-o", str(lib), "-lpthread"]
+        procs[name] = (subprocess.Popen(cmd, stderr=subprocess.PIPE,
+                                        text=True), lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        g = torch.as_tensor(g).to(torch.int64)
+        w = torch.as_tensor(w).to(torch.int64)
+        assert torch.equal(g.reshape(w.shape), w)
+
+
+@pytest.mark.parametrize("p", [64, 128])
+def test_emulated_grouped_verify_equals_plain(emu, p):
+    rng = np.random.default_rng(p)
+    W, N, B, C = (p + 31) // 32, 400, 5, 300
+    words = rng.integers(0, 1 << 32, size=(N + B, W), dtype=np.uint64)
+    words = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    db, q = words[:N].contiguous(), words[N:].contiguous()
+    idx = torch.from_numpy(rng.integers(0, N, size=(B, C)).astype(np.int32))
+    lens = torch.tensor([0, 5, C, 31, 1], dtype=torch.int32)
+    out = torch.empty((B, C), dtype=torch.int32)
+    vt._launch(emu["verify_grouped"], q, db, idx, lens, out, p, 0)
+    assert torch.equal(out,
+                       vt.gather_verify_grouped_plain(q, db, idx, lens, p))
+
+
+@pytest.fixture(scope="module")
+def walk_calls():
+    """Operands of the walk and scan launches of a CPU device-path run
+    (mixed z-groups, a truncated stream so queries bail to the scan)."""
+    p, n = 64, 3000
+    db = synthetic_binary_codes_packed(n, p, seed=3)
+    q = synthetic_queries_packed(db, p, 12, seed=4)
+    calls = {}
+    names = ("device_probe_walk_batched", "device_probe_walk",
+             "device_probe_scan_multi", "device_probe_scan")
+    orig = {nm: getattr(dp, nm) for nm in names}
+
+    def keep(nm):
+        def f(*a, **kw):
+            calls.setdefault(nm, (a, kw))
+            return orig[nm](*a, **kw)
+        return f
+
+    for nm in names:
+        setattr(dp, nm, keep(nm))
+    try:
+        eng = make_engine("amih", db, p, m=4, probe_backend="device",
+                          probe_stream_cap=256, query_cache_size=0,
+                          device="cpu")
+        eng.knn_batch(q, 8)                   # fused walk + scan
+        eng.index.probe_fused = False
+        eng.knn_batch(q[:4], 8)               # per-group walks + scans
+    finally:
+        for nm in names:
+            setattr(dp, nm, orig[nm])
+    return calls
+
+
+@pytest.mark.parametrize("check_every", [1, 3])
+def test_emulated_batched_walk_equals_plain(emu, walk_calls, check_every):
+    a, kw = walk_calls["device_probe_walk_batched"]
+    kw = dict(kw, check_every=check_every)
+    want = dp.device_probe_walk_batched_plain(torch.empty_like(a[0]), *a[1:],
+                                              **kw)
+    got = dp._walk_kernel(emu["probe_walk"], torch.empty_like(a[0]), *a[1:],
+                          **kw, stream=0)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("check_every", [1, 3])
+def test_emulated_group_walk_equals_plain(emu, walk_calls, check_every):
+    a, kw = walk_calls["device_probe_walk"]
+    kw = dict(kw, check_every=check_every)
+    (q_words, q_sub, z_sub, pow1, pow0, t_stop, k, s_len, budget, tbl,
+     step_ext, idx1, idx0, maxi1, maxi0, widths, offsets, ids, db_pad,
+     inv_pos) = a
+    want = dp.device_probe_walk_plain(*a, **kw)
+    B, P = q_words.shape[0], tbl.shape[0]
+    i32 = torch.int32
+    got = dp._walk_kernel(
+        emu["probe_walk"], torch.empty((B, db_pad.shape[0]), dtype=i32),
+        q_words, q_sub, z_sub, pow1, pow0, torch.zeros(B, dtype=i32), t_stop,
+        k, budget, torch.zeros(1, dtype=i32),
+        torch.full((1,), s_len, dtype=i32), tbl, step_ext[:P], idx1, idx0,
+        maxi1, maxi0, widths, offsets, ids, db_pad, inv_pos[None, :], **kw,
+        stream=0,
+    )
+    _same(got[:4], want[:4])
+    assert int(got[4][0]) == want[4] and int(got[5][0]) == want[5]
+
+
+def test_emulated_scans_equal_plain(emu, walk_calls):
+    a, kw = walk_calls["device_probe_scan_multi"]
+    q_words, gid, db_pad, inv_pos, n_valid = a
+    out = torch.empty((q_words.shape[0], db_pad.shape[0]), dtype=torch.int32)
+    dp._scan_kernel(emu["probe_scan"], q_words, gid, db_pad, inv_pos,
+                    n_valid, out, p=kw["p"], stream=0)
+    assert torch.equal(out, dp.device_probe_scan_multi_plain(*a, **kw))
+    a, kw = walk_calls["device_probe_scan"]
+    q_words, db_pad, inv_pos, n_valid = a
+    out = torch.empty((q_words.shape[0], db_pad.shape[0]), dtype=torch.int32)
+    dp._scan_kernel(emu["probe_scan"], q_words,
+                    torch.zeros(q_words.shape[0], dtype=torch.int32), db_pad,
+                    inv_pos[None, :], n_valid, out, p=kw["p"], stream=0)
+    assert torch.equal(out, dp.device_probe_scan_plain(*a, **kw))

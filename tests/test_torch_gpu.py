@@ -1,0 +1,149 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a
+CUDA device (marked ``gpu``; every test skips without one). This file
+imports neither JAX nor the reference package, so it runs on a machine
+that has only PyTorch and the CUDA toolkit:
+
+    python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.engine import make_engine
+from repro_torch.data.synthetic import (
+    synthetic_binary_codes_packed,
+    synthetic_queries_packed,
+)
+from repro_torch.kernels import device_probe as dp
+from repro_torch.kernels import ops
+from repro_torch.kernels import verify_tuples as vt
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels)")
+    return torch.device("cuda")
+
+
+def _words(rng, shape):
+    return torch.from_numpy(
+        rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+        .astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("p", [32, 64, 128])
+def test_grouped_verify_kernel_equals_plain(cuda, p):
+    rng = np.random.default_rng(p)
+    W, N, B, C = (p + 31) // 32, 5000, 16, 300
+    db, q = _words(rng, (N, W)).to(cuda), _words(rng, (B, W)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, N, size=(B, C)).astype(np.int32))
+    lens = torch.from_numpy(rng.integers(0, C + 1, size=B).astype(np.int32))
+    lens[0] = 0
+    idx, lens = idx.to(cuda), lens.to(cuda)
+    before = vt.LAUNCHES["verify_grouped"]
+    got = vt.gather_verify_grouped(q, db, idx, lens, p=p)
+    assert vt.LAUNCHES["verify_grouped"] == before + 1
+    assert torch.equal(got, vt.gather_verify_grouped_plain(q, db, idx, lens,
+                                                           p))
+
+
+@pytest.mark.parametrize("p,m,B", [(64, 4, 64), (64, 4, 1), (128, 8, 16)])
+def test_device_path_on_card_equals_plain_on_cpu(cuda, p, m, B):
+    n, k = 40_000, 10
+    db = synthetic_binary_codes_packed(n, p, seed=p)
+    q = synthetic_queries_packed(db, p, B, seed=p + 1)
+    gpu = make_engine("amih", db, p, m=m, probe_backend="device",
+                      query_cache_size=0)
+    cpu = make_engine("amih", db, p, m=m, probe_backend="device",
+                      query_cache_size=0, device="cpu")
+    walks = dp.LAUNCHES["probe_walk"]
+    gi, gs, gst = gpu.knn_batch(q, k)
+    assert dp.LAUNCHES["probe_walk"] == walks + 1
+    ci, cs, cst = cpu.knn_batch(q, k)
+    assert np.array_equal(gi, ci) and np.array_equal(gs, cs)
+    assert gst.per_query == cst.per_query
+
+
+@pytest.mark.parametrize("check_every", [1, 3])
+def test_walk_and_scan_kernels_equal_plain(cuda, check_every):
+    p, m, n, B, k = 64, 4, 30_000, 24, 7
+    db = synthetic_binary_codes_packed(n, p, seed=5)
+    q = synthetic_queries_packed(db, p, B, seed=6)
+    eng = make_engine("amih", db, p, m=m, probe_backend="device",
+                      query_cache_size=0, probe_stream_cap=512)
+    seen = {}
+    orig = dp.device_probe_walk_batched
+
+    def keep(*a, **kw):
+        seen["walk"] = (a, kw)
+        return orig(*a, **kw)
+
+    dp.device_probe_walk_batched = keep
+    try:
+        eng.knn_batch(q, k)
+    finally:
+        dp.device_probe_walk_batched = orig
+    a, kw = seen["walk"]
+    kw = dict(kw, check_every=check_every)
+    got = dp.device_probe_walk_batched(torch.empty_like(a[0]), *a[1:], **kw)
+    want = dp.device_probe_walk_batched_plain(torch.empty_like(a[0]), *a[1:],
+                                              **kw)
+    for g, w in zip(got, want):                 # iters: (1,) vs int
+        assert torch.equal(torch.as_tensor(g).cpu().reshape(-1).long(),
+                           torch.as_tensor(w).cpu().reshape(-1).long())
+    q_words, gid, db_pad, inv_pos = a[1], a[6], a[21], a[22]
+    scan = dp.device_probe_scan_multi(q_words, gid, db_pad, inv_pos, n, p=p,
+                                      chunk=2048)
+    assert torch.equal(scan, dp.device_probe_scan_multi_plain(
+        q_words, gid, db_pad, inv_pos, n, p=p, chunk=2048))
+
+
+def test_per_group_walk_and_scan_kernels_equal_plain(cuda):
+    """The G = 1 wrappers: ``probe_fused=False`` walks one z-group per
+    launch, and a truncated stream sends its queries to the per-group
+    scan."""
+    p, m, n, B, k = 64, 4, 30_000, 24, 7
+    db = synthetic_binary_codes_packed(n, p, seed=5)
+    q = synthetic_queries_packed(db, p, B, seed=6)
+    eng = make_engine("amih", db, p, m=m, query_cache_size=0,
+                      probe_stream_cap=256, probe_fused=False)
+    names = ("device_probe_walk", "device_probe_scan")
+    orig = {name: getattr(dp, name) for name in names}
+    seen = {}
+
+    def keeper(name):
+        def keep(*a, **kw):
+            seen.setdefault(name, (a, kw))
+            return orig[name](*a, **kw)
+        return keep
+
+    for name in names:
+        setattr(dp, name, keeper(name))
+    try:
+        eng.knn_batch(q, k)
+    finally:
+        for name, fn in orig.items():
+            setattr(dp, name, fn)
+    assert set(seen) == set(names)
+    a, kw = seen["device_probe_walk"]
+    for check_every in (1, 3):
+        kw2 = dict(kw, check_every=check_every)
+        got = dp.device_probe_walk(*a, **kw2)
+        want = dp.device_probe_walk_plain(*a, **kw2)
+        for g, w in zip(got, want):
+            assert torch.equal(torch.as_tensor(g).cpu().reshape(-1).long(),
+                               torch.as_tensor(w).cpu().reshape(-1).long())
+    a, kw = seen["device_probe_scan"]
+    assert torch.equal(dp.device_probe_scan(*a, **kw),
+                       dp.device_probe_scan_plain(*a, **kw))
+
+
+def test_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros((2, 2), dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        vt.gather_verify_grouped(x, x, x, x[0], p=64)
+    assert ops.resolve_device(None).type == "cuda"
