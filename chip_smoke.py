@@ -6,7 +6,7 @@
 It imports nothing of JAX and nothing of the reference package. Phases,
 each of which fails the run (non-zero exit) on any error or mismatch:
 
-1. the card (``nvidia-smi``), torch and nvcc versions; the three kernels
+1. the card (``nvidia-smi``), torch and nvcc versions; the six kernels
    built from ``src/repro_torch/kernels/csrc`` (one nvcc per source, all in
    parallel), with each build's register report;
 2. each kernel against its plain PyTorch version on the card, by equality:
@@ -15,21 +15,35 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    the main path hands them at n = 2^18 clustered codes, B = 64 mixed z:
    the batched walk (G > 1) and the per-group walk (G = 1), each with
    check_every in {1, 3}, the cross-group scan, and the per-group scan
-   (``probe_fused=False`` with a truncated stream), timed;
-3. the main path at full size: n = 10,000,000 clustered codes
+   (``probe_fused=False`` with a truncated stream), timed; K4 (linear-scan
+   scores), K5 (block maxima) and K6 (one-query tuples) at n = 2^18,
+   p in {64, 128}, B = 64 with a zero-norm query and an all-zero code,
+   bit for bit;
+3. the two exact paths at full size: n = 10,000,000 clustered codes
    (n_clusters = 256, flip_prob = 0.08), queries from
-   ``synthetic_queries_packed`` (flip_prob = 0.05), (p, m) in
-   {(64, 4), (128, 8)}, B in {1, 64}, K in {10, 100}, query cache off,
-   through ``make_engine("amih", ...)`` (the device walk). Per case:
-   one walk launch and at most one scan launch per batch; results equal
-   the same index with ``probe_fused=False``; 8 queries against the exact
-   float64 linear scan. The host walk with the CUDA verify (K1) answers 4
-   queries per p and must equal the device path. One batch at p = 128,
-   B in {64, 1}, runs under ``torch.profiler`` (card busy time, idle
-   share, kernels by device time; Chrome traces in ``chiprun_out/``) and
-   once more with the port's tracer on (host time by layer span).
-   Every kernel launch counter is set to 0 before this phase and read
-   after it;
+   ``synthetic_queries_packed`` (flip_prob = 0.05), p in {64, 128},
+   B in {1, 64}, K in {10, 100}, median of 5 warm batches per case, 8
+   queries per case against the exact float64 linear scan.
+   a. AMIH, through ``make_engine("amih", ...)`` (the device walk, m = 4
+      and 8), query cache off. Per case: one walk launch and at most one
+      scan launch per batch; results equal the same index with
+      ``probe_fused=False``. The host walk with the CUDA verify (K1)
+      answers 4 queries per p and must equal the device path. One batch
+      at p = 128, B in {64, 1}, runs under ``torch.profiler`` (card busy
+      time, idle share, kernels by device time; Chrome traces in
+      ``chiprun_out/``) and once more with the port's tracer on (host
+      time by layer span).
+   b. The linear scan, through ``make_engine("linear_scan", ...)`` (the
+      CUDA backend: K4 per 65,536-code chunk, a running top-K, a float64
+      host rerank). Per case: one K4 launch per chunk; the checked rows
+      bit-identical to the float64 scan's sims; every B = 64 row equal to
+      AMIH's but for equal-cosine ties (ROADMAP C-R1).
+      ``ops.scan_topk_pruned`` (K5, then K4 on the surviving blocks) at
+      B in {1, 64}, K = 10 equals ``ops.scan_topk``; ``ops.verify_tuples_op``
+      (K6) on one query against all n codes equals the host's tuples. One
+      batch at p = 128, B = 64 runs under the profiler and the tracer.
+   Every kernel launch counter is set to 0 just before each path (a, b)
+   at each p and read just after it;
 4. each kernel against its plain version again, on operands captured from
    the main path at full size, with CUDA-event times beside each kernel's
    bound (the bytes it must move at 3.35 TB/s, or its 32-bit integer
@@ -101,20 +115,21 @@ def bound_ms(nbytes, int_ops, popcs):
 
 
 class Recorder:
-    """Wraps the kernel entry points the launch layer calls (the walk and
-    scan wrappers of ``kernels.device_probe``, the grouped verify as
-    ``kernels.ops`` calls it) to keep the operands of the first ``keep``
-    calls of each — of the grouped verify, its largest call — so each
-    kernel can be checked and timed at the shapes the main path gives it.
-    Launch counts are untouched: the wrapped function runs as before."""
+    """Wraps the kernel entry points the launch layer calls (``sites``: the
+    walk and scan wrappers of ``kernels.device_probe``, the grouped verify
+    as ``kernels.ops`` calls it, or the linear scan's three kernel wrappers
+    as ``kernels.ops`` calls them) to keep the operands of
+    the first ``keep`` calls of each — of the grouped verify, its largest
+    call — so each kernel can be checked and timed at the shapes the main
+    path gives it. Launch counts are untouched: the wrapped function runs
+    as before."""
 
     WALKS = ("device_probe_walk_batched", "device_probe_walk",
              "device_probe_scan_multi", "device_probe_scan")
+    SCANS = ("hamming_scan_scores", "blockmax_scores", "verify_tuples")
 
-    def __init__(self, dp, ops=None, keep: int = 1):
-        self.sites = [(dp, name) for name in self.WALKS]
-        if ops is not None:
-            self.sites.append((ops, "gather_verify_grouped"))
+    def __init__(self, sites, keep: int = 1):
+        self.sites = sites          # (module, function name) pairs to wrap
         self.keep = keep
         self.calls = {}
         self.orig = []
@@ -143,13 +158,23 @@ class Recorder:
         return False
 
 
+def sites(mod, names):
+    """The (module, name) pairs of ``names`` in ``mod``, for ``Recorder``."""
+    return [(mod, name) for name in names]
+
+
 def cuda_ms(fn, reps: int) -> float:
+    """Card time per call of ``fn``: CUDA events around ``reps`` calls.
+    A spin kernel queued first (~0.1 ms per call at ~2 GHz) holds the
+    stream until every call is enqueued, so the host's time to launch a
+    short kernel does not show as card time between calls."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(reps * 2e5))
     t0.record()
     for _ in range(reps):
         fn()
@@ -311,11 +336,22 @@ def walk_bound_ms(entry, W):
     return bound_ms(nbytes, live * (4 * W + 8), live * 2 * W)
 
 
+# A scan of B queries over N codes needs less: r10 = z - |q & c| and
+# r01 = |c| - |q & c|, so per pair W ands, population counts and adds for
+# |q & c| and ``extra`` operations after them, and per code W population
+# counts and adds for |c|, which the B queries share.
+def pair_bound_ms(nbytes, B, N, W, extra):
+    return bound_ms(nbytes, B * N * (2 * W + extra) + N * W,
+                    B * N * W + N * W)
+
+
 def scan_bound_ms(q_words, db_pad):
+    """Least time of a K3 launch: codes and queries read once, the (B,
+    n_pad) keys written once; per pair the key's r10, r01 and multiply-add."""
     B, W = q_words.shape
     n_pad = db_pad.shape[0]
     nbytes = db_pad.numel() * 4 + B * n_pad * 4 + q_words.numel() * 4
-    return bound_ms(nbytes, B * n_pad * (4 * W + 3), B * n_pad * 2 * W)
+    return pair_bound_ms(nbytes, B, n_pad, W, 3)
 
 
 def verify_bound_ms(B, C, W, live):
@@ -354,6 +390,214 @@ def check_verify(vt, torch, dev, p, B=64, C=2048, N=1 << 18, seed=0):
             "bound_by": by}
 
 
+def scan_bound_ms_pairs(B, N, W, out_elems):
+    """Least time of a K4/K5 launch: codes and queries read once, the
+    ``out_elems`` float32 results written once; per (query, code) pair
+    the Eq. 3 numerator |q & c| and the denominator's multiply z * |c|.
+    The float work after it (a conversion and a multiply per pair, the
+    square root and reciprocal per distinct z * |c|) is not counted."""
+    nbytes = N * W * 4 + B * (W + 1) * 4 + out_elems * 4
+    return pair_bound_ms(nbytes, B, N, W, 1)
+
+
+def scan_kernels(hs, bm, vt):
+    """name -> (kernel, plain, LAUNCHES dict) of the linear scan's three
+    kernel wrappers, keyed as ``Recorder.SCANS`` names them."""
+    return {
+        "hamming_scan_scores": (hs.hamming_scan_scores,
+                                hs.hamming_scan_scores_plain, hs.LAUNCHES),
+        "blockmax_scores": (bm.blockmax_scores, bm.blockmax_scores_plain,
+                            bm.LAUNCHES),
+        "verify_tuples": (vt.verify_tuples, vt.verify_tuples_plain,
+                          vt.LAUNCHES),
+    }
+
+
+def check_scan_call(kernels, name, a, kw, timed=False, reps=20):
+    """K4/K5/K6 on one call's operands against the plain version on the
+    same tensors, bit for bit (float32 scores compared as their bits);
+    with ``timed``, the kernel's CUDA-event time, the plain version's
+    host-clock time around one call, and the bound."""
+    import torch
+
+    kernel, plain, counts = kernels[name]
+    call_plain = lambda: plain(*a, **kw)
+    saved = dict(counts)
+    got = kernel(*a, **kw)
+    torch.cuda.synchronize()
+    ref = call_plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    bits = [t.view(torch.int32) if t.dtype == torch.float32 else t
+            for t in got + ref]
+    max_err(bits[:len(got)], bits[len(got):])     # raises unless equal
+    err = max(float((g.double() - r.double()).abs().max()) if g.numel()
+              else 0.0 for g, r in zip(got, ref))
+    entry = {"max_abs_err": err}
+    if timed:
+        entry["ms"] = cuda_ms(lambda: kernel(*a, **kw), reps)
+        t0 = time.perf_counter()
+        call_plain()
+        torch.cuda.synchronize()
+        entry["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        if name == "verify_tuples":
+            q, cand = a
+            N, W = cand.shape
+            entry["bound_ms"], entry["bound_by"] = bound_ms(
+                N * W * 4 + W * 4 + 2 * N * 4, N * 4 * W, N * 2 * W)
+        else:
+            q, _, db = a
+            B, W = q.shape
+            entry["bound_ms"], entry["bound_by"] = scan_bound_ms_pairs(
+                B, db.shape[0], W, got[0].numel())
+        entry["shape"] = (f"q {tuple(a[0].shape)}, codes "
+                          f"{tuple(a[-1].shape)}")
+    counts.update(saved)                          # comparisons do not count
+    return entry
+
+
+def check_scan_kernels(kernels, ops, torch, dev, p, n=1 << 18, B=64):
+    """Phase 2: K4, K5 and K6 against their plain versions at n codes,
+    with a zero-norm query, an all-zero code and a ragged last block."""
+    from repro_torch.data.synthetic import (
+        synthetic_binary_codes_packed,
+        synthetic_queries_packed,
+    )
+
+    db = synthetic_binary_codes_packed(n - 100, p, seed=SEED + p)
+    q = synthetic_queries_packed(db, p, B, seed=SEED + p + 1)
+    db[5] = 0
+    q[1] = 0
+    db_t, q_t = ops.to_device(db, dev), ops.to_device(q, dev)
+    z = ops.query_popcounts(q_t)
+    calls = (("hamming_scan_scores", (q_t, z, db_t), {}),
+             ("blockmax_scores", (q_t, z, db_t), {"blk_n": 2048}),
+             ("verify_tuples", (q_t[0], db_t), {}))
+    for name, a, kw in calls:
+        check_scan_call(kernels, name, a, kw)
+    return [name for name, _, _ in calls]
+
+
+def same_but_ties(ids, sims, o_ids, o_sims, atol=1e-12):
+    """Rows of two exact top-Ks: equal, or equal but for equal-cosine ties
+    (ROADMAP C-R1: AMIH emits two tuples of equal exact cosine in tuple
+    order, and their float64 sims may round 1 ulp apart). Sims must agree
+    within ``atol``, and ids at every position whose sim has no partner
+    within ``atol`` in the row and is not within ``atol`` of the k-th.
+    Returns the number of rows that are equal outright; raises otherwise."""
+    import numpy as np
+
+    exact = 0
+    for i in range(ids.shape[0]):
+        if (np.array_equal(ids[i], o_ids[i])
+                and np.array_equal(sims[i], o_sims[i])):
+            exact += 1
+            continue
+        s = sims[i]
+        near = np.abs(s[:, None] - s[None, :]) <= atol
+        tied = (near.sum(axis=1) > 1) | (np.abs(s - s[-1]) <= atol)
+        if not (np.allclose(s, o_sims[i], rtol=0, atol=atol)
+                and np.array_equal(ids[i][~tied], o_ids[i][~tied])):
+            raise AssertionError(f"row {i}: the two exact paths differ "
+                                 "beyond equal-cosine ties")
+    return exact
+
+
+def scan_path(p, db, batch, singles, chk, want_topk, amih_rows, *, dev,
+              tag, timings):
+    """Phase 3b at one p: the CUDA linear scan's cases (appended to
+    ``timings``), its pruned scan and its one-query verify, each checked
+    as the module docstring says. ``want_topk(row, k)`` is the float64
+    scan's top-k of row ``row`` of ``chk``; ``amih_rows[k]`` the AMIH
+    path's B = 64 result."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import make_engine
+    from repro_torch.core.linear_scan import sims_for_ids
+    from repro_torch.core.packing import hamming_tuples
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import REGISTRY
+
+    chunks = -(-N_MAIN // (1 << 16))   # K4 launches per batch
+    eng = make_engine("linear_scan", db, p)
+
+    def check_exact(ids, sims, k, off):
+        for j in range(K_CHECK):
+            w_ids, w_sims = want_topk(off + j, k)
+            tie = w_sims == w_sims[-1]
+            if not (np.array_equal(sims[j], w_sims)
+                    and np.array_equal(ids[j][~tie], w_ids[~tie])
+                    and len(set(ids[j].tolist())) == k
+                    and np.array_equal(sims_for_ids(chk[off + j], db,
+                                                    ids[j]), sims[j])):
+                raise AssertionError(f"linear scan p={p} k={k}: query "
+                                     f"{j} differs from the float64 scan")
+
+    for B in (64, 1):
+        for K in (10, 100):
+            s0 = REGISTRY.value("launches.scan_scores")
+            ms = []
+            if B == 64:
+                eng.knn_batch(batch, K)                      # warm
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    ids, sims, _ = eng.knn_batch(batch, K)
+                    ms.append((time.perf_counter() - t0) * 1e3 / B)
+                n_batches = 6
+                check_exact(ids, sims, K, 0)
+                a_ids, a_sims = amih_rows[K]
+                exact = same_but_ties(ids, sims, a_ids, a_sims)
+                vs_amih = (f"; {exact}/{B} rows equal to AMIH's, the "
+                           f"rest but for equal-cosine ties")
+            else:
+                eng.knn_batch(singles[:1], K)                # warm
+                res = []
+                for j in range(1, 1 + K_CHECK):
+                    t0 = time.perf_counter()
+                    res.append(eng.knn_batch(singles[j:j + 1], K))
+                    if j <= 5:
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                n_batches = 1 + K_CHECK
+                check_exact(np.stack([r[0][0] for r in res]),
+                            np.stack([r[1][0] for r in res]), K, K_CHECK)
+                vs_amih = ""
+            per = (REGISTRY.value("launches.scan_scores") - s0) / n_batches
+            if per != chunks:
+                raise AssertionError(f"linear scan p={p} B={B} K={K}: "
+                                     f"{per} K4 launches per batch, "
+                                     f"expected {chunks}")
+            med = statistics.median(ms)
+            timings.append((p, B, K, med))
+            log(f"  linear scan p={p} B={B} K={K}: {med:.4f} ms/query "
+                f"(median of 5 warm batches) {tag}; {per:.0f} K4 "
+                f"launches/batch; exact vs the float64 scan{vs_amih}")
+    db_t = ops.to_device(db, dev)
+    q_t = ops.to_device(batch, dev)
+    for B in (64, 1):
+        f_sims, f_ids = ops.scan_topk(q_t[:B], db_t, 10)
+        p_sims, p_ids, frac = ops.scan_topk_pruned(q_t[:B], db_t, 10)
+        if not (torch.equal(f_sims, p_sims) and torch.equal(f_ids, p_ids)):
+            raise AssertionError(f"p={p} B={B}: scan_topk_pruned differs "
+                                 "from scan_topk")
+        log(f"  scan_topk_pruned p={p} B={B} K=10: equal to scan_topk; "
+            f"scanned_fraction {float(frac):.6f}")
+    r10, r01 = ops.verify_tuples_op(q_t[0], db_t)
+    h10, h01 = hamming_tuples(batch[0], db)
+    if not (np.array_equal(r10.cpu().numpy(), h10)
+            and np.array_equal(r01.cpu().numpy(), h01)):
+        raise AssertionError(f"p={p}: verify_tuples_op differs from the "
+                             "host's tuples")
+    log(f"  verify_tuples_op p={p}, one query x {N_MAIN:,} codes: equal "
+        f"to the host's tuples")
+    if p == 128:
+        profile_batch(lambda: eng.knn_batch(batch, 10),
+                      "scan_p128_B64_K10", ROOT / "chiprun_out")
+        span_breakdown(lambda: eng.knn_batch(batch, 10),
+                       "scan_p128_B64_K10")
+
+
 # --------------------------------------------------------------- main path
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -386,6 +630,8 @@ def main() -> int:
         synthetic_queries_packed,
     )
     from repro_torch.kernels import _build, device_probe as dp, ops
+    from repro_torch.kernels import blockmax_scan as bm
+    from repro_torch.kernels import hamming_scan as hs
     from repro_torch.kernels import verify_tuples as vt
     from repro_torch.obs.metrics import REGISTRY
 
@@ -425,7 +671,7 @@ def main() -> int:
     db_s = synthetic_binary_codes_packed(n_small, 64, seed=SEED)
     q_s = synthetic_queries_packed(db_s, 64, 64, seed=SEED + 1)
     eng = make_engine("amih", db_s, 64, m=4, query_cache_size=0)
-    with Recorder(dp, keep=3) as rec:
+    with Recorder(sites(dp, Recorder.WALKS), keep=3) as rec:
         eng.knn_batch(q_s, 10)                    # batched walk, G > 1
         eng.knn_batch(q_s[:1], 10)                # per-group walk, G = 1
         eng.index.probe_fused = False
@@ -449,6 +695,10 @@ def main() -> int:
         f"{small['bound_ms']:.4f} ms ({small['bound_by']}) {tag}")
     log(f"  K2 grid: {dp.LAST_WALK_GRID[0]} co-resident blocks x "
         f"{dp.LAST_WALK_GRID[1]} threads")
+    kernels46 = scan_kernels(hs, bm, vt)
+    for p in (64, 128):
+        names = check_scan_kernels(kernels46, ops, torch, dev, p)
+        log(f"  {', '.join(names)} p={p} n=2^18 B=64: equal bit for bit")
     torch.cuda.synchronize()
     del eng, eng2, rec
     gc.collect()
@@ -458,20 +708,32 @@ def main() -> int:
         return 0
 
     # ---- phase 3: the main path at full size
-    log(f"phase 3: main path, n={N_MAIN:,} clustered codes {tag}")
-    for c in dp.LAUNCHES:
-        dp.LAUNCHES[c] = 0
-    for c in vt.LAUNCHES:
-        vt.LAUNCHES[c] = 0
-    REGISTRY.reset("launches.")
+    log(f"phase 3: main paths, n={N_MAIN:,} clustered codes {tag}")
+    counted = (dp, vt, hs, bm)
+
+    def zero_counts():
+        for mod in counted:
+            for c in mod.LAUNCHES:
+                mod.LAUNCHES[c] = 0
+        REGISTRY.reset("launches.")
+
+    def add_counts(total):
+        for mod in counted:
+            for c, v in mod.LAUNCHES.items():
+                total[c] = total.get(c, 0) + v
+
+    amih_counts, scan_counts = {}, {}
     captured = {}
+    captured_scan = {}
     timings = []
+    scan_timings = []
     for p, m in ((64, 4), (128, 8)):
         t0 = time.perf_counter()
         db = synthetic_binary_codes_packed(N_MAIN, p, seed=SEED)
         qs = synthetic_queries_packed(db, p, 64 + 1 + 5 + K_CHECK,
                                       seed=SEED + 1)
         t_gen = time.perf_counter() - t0
+        zero_counts()                     # path a: AMIH
         t0 = time.perf_counter()
         eng = make_engine("amih", db, p, m=m, query_cache_size=0)
         torch.cuda.synchronize()
@@ -487,9 +749,16 @@ def main() -> int:
         log(f"  p={p}: linear-scan oracle for {len(chk)} queries "
             f"{time.perf_counter() - t0:.1f} s (host numpy)")
 
+        wanted = {}
+
+        def want_topk(row, k):
+            if (row, k) not in wanted:
+                wanted[row, k] = topk_from_sims(oracle[row], k)
+            return wanted[row, k]
+
         def check_scan(rows, ids, sims, k, off):
             for j, r in enumerate(rows):
-                _, want = topk_from_sims(oracle[off + r], k)
+                _, want = want_topk(off + r, k)
                 if not np.allclose(sims[j], want, rtol=0, atol=1e-9):
                     raise AssertionError(f"p={p} k={k}: sims differ from "
                                          f"the linear scan (query {r})")
@@ -498,12 +767,14 @@ def main() -> int:
                     raise AssertionError(f"p={p} k={k}: ids do not carry "
                                          f"their sims (query {r})")
 
+        amih_rows = {}
         for B in (64, 1):
             for K in (10, 100):
                 walks0 = REGISTRY.value("launches.device_probe")
                 scans0 = REGISTRY.value("launches.device_probe_scan")
                 # operands of the main path's launches, kept for phase 4
-                with Recorder(dp, keep=1 if K == 10 else 0) as rec:
+                with Recorder(sites(dp, Recorder.WALKS),
+                              keep=1 if K == 10 else 0) as rec:
                     if B == 64:
                         ids, sims, st = eng.knn_batch(batch, K)   # warm
                         n_batches = 1
@@ -516,6 +787,7 @@ def main() -> int:
                         check_scan(range(K_CHECK), ids[:K_CHECK],
                                    sims[:K_CHECK], K, 0)
                         res_ids, res_sims = ids, sims
+                        amih_rows[K] = (ids, sims)
                     else:
                         eng.knn_batch(singles[:1], K)             # warm
                         n_batches = 1
@@ -582,7 +854,8 @@ def main() -> int:
         host = index_from_reference(index_state(eng.index),
                                     verify_backend="cuda",
                                     probe_backend="host")
-        with Recorder(dp, ops) as krec:
+        with Recorder(sites(dp, Recorder.WALKS)
+                      + [(ops, "gather_verify_grouped")]) as krec:
             h_ids, h_sims = host.knn_batch(batch[:4], 10)
         captured[(p, 4, 10, "gather_verify_grouped")] = krec.calls.get(
             "gather_verify_grouped", [])
@@ -594,16 +867,31 @@ def main() -> int:
         log(f"  p={p}: host walk + CUDA verify, 4 queries K=10: equal to the "
             f"device path; {host.verify_launches} verify launches, "
             f"{t_host:.1f} s")
-        del host, eng, db
+        add_counts(amih_counts)
+        del host, eng
         gc.collect()
         torch.cuda.empty_cache()
-    launches = {"verify_grouped": vt.LAUNCHES["verify_grouped"],
-                "probe_walk": dp.LAUNCHES["probe_walk"],
-                "probe_scan": dp.LAUNCHES["probe_scan"]}
-    log(f"  kernel launches in the main path: {launches}")
+
+        zero_counts()                     # path b: the linear scan
+        with Recorder(sites(ops, Recorder.SCANS)) as srec:
+            scan_path(p, db, batch, singles, chk, want_topk, amih_rows,
+                      dev=dev, tag=tag, timings=scan_timings)
+        add_counts(scan_counts)
+        captured_scan[p] = srec.calls
+        del db
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {"verify_grouped": amih_counts["verify_grouped"],
+                "probe_walk": amih_counts["probe_walk"],
+                "probe_scan": amih_counts["probe_scan"],
+                "hamming_scan": scan_counts["hamming_scan"],
+                "blockmax_scan": scan_counts["blockmax_scan"],
+                "verify_tuples": scan_counts["verify_tuples"]}
+    log(f"  kernel launches, AMIH path: {amih_counts}")
+    log(f"  kernel launches, linear-scan path: {scan_counts}")
     for name, cnt in launches.items():
         if cnt == 0:
-            raise AssertionError(f"kernel {name} never ran on the main path")
+            raise AssertionError(f"kernel {name} never ran on its main path")
 
     # ---- phase 4: kernels vs plain on main-path operands, timed
     log(f"phase 4: kernels vs plain at main-path shapes, times {tag}")
@@ -612,7 +900,7 @@ def main() -> int:
                                          key=lambda kv: str(kv[0])):
         if K != 10:
             continue
-        sub = Recorder(dp)
+        sub = Recorder([])
         sub.calls = {name: calls}
         res = check_walk_calls(dp, sub, f"p={p} B={B}", timed={name})
         for nm, entry in res.items():
@@ -633,6 +921,20 @@ def main() -> int:
             log(f"  {nm} p={p} B={B}: kernel {entry['ms']:.4f} ms, plain "
                 f"{entry['plain_ms']:.2f} ms, bound {bound:.4f} ms ({by}) "
                 f"{tag}")
+
+    scan_meas = {}
+    for p in (64, 128):
+        for name in Recorder.SCANS:
+            calls = captured_scan[p].get(name)
+            if not calls:
+                raise AssertionError(f"the linear-scan path at p={p} never "
+                                     f"called {name}")
+            (a, kw), = calls
+            e = check_scan_call(kernels46, name, a, kw, timed=True)
+            scan_meas[p, name] = e
+            log(f"  {name} p={p} ({e['shape']}): kernel {e['ms']:.4f} ms, "
+                f"plain {e['plain_ms']:.2f} ms, bound {e['bound_ms']:.4f} ms "
+                f"({e['bound_by']}), equal bit for bit {tag}")
 
     def pick(names):
         best = None
@@ -657,6 +959,15 @@ def main() -> int:
         ("probe_scan", "src/repro_torch/kernels/csrc/probe_scan.cu",
          "src/repro/kernels/device_probe.py:534", launches["probe_scan"],
          scan[1] if scan else None),
+        ("hamming_scan", "src/repro_torch/kernels/csrc/hamming_scan.cu",
+         "src/repro/kernels/hamming_scan.py:62", launches["hamming_scan"],
+         scan_meas[128, "hamming_scan_scores"]),
+        ("blockmax_scan", "src/repro_torch/kernels/csrc/blockmax_scan.cu",
+         "src/repro/kernels/blockmax_scan.py:53", launches["blockmax_scan"],
+         scan_meas[128, "blockmax_scores"]),
+        ("verify_tuples", "src/repro_torch/kernels/csrc/verify_tuples.cu",
+         "src/repro/kernels/verify_tuples.py:134", launches["verify_tuples"],
+         scan_meas[128, "verify_tuples"]),
     ):
         if meas is None:
             raise AssertionError(f"no main-path measurement of {name}")
@@ -673,6 +984,8 @@ def main() -> int:
     for (p, B, K, med, wpb, spb, bails) in timings:
         log(f"  p={p:3d} B={B:2d} K={K:3d}: {med:.4f} ms/query; "
             f"walk/batch {wpb:.0f}, scan/batch {spb:.2f}")
+    for (p, B, K, med) in scan_timings:
+        log(f"  linear scan p={p:3d} B={B:2d} K={K:3d}: {med:.4f} ms/query")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

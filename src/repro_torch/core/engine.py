@@ -6,8 +6,11 @@ backends (a port of the reference's ``core/engine.py``).
 
 Backends ported so far:
 
-  - "linear_scan" — exhaustive Eq. 3 scan, batched over queries with
-                    chunked host popcounts (the float64 numpy oracle).
+  - "linear_scan" — exhaustive Eq. 3 scan: on the CUDA device
+                    (``compute_backend="cuda"``, the default: the K4 scoring
+                    kernel streamed through a running top-K, then an exact
+                    float64 host rerank), or chunked host popcounts
+                    (``compute_backend="numpy"``, the float64 oracle).
   - "amih"        — angular multi-index hashing (§5): the device walk
                     (``probe_backend="device"``, the default: ONE kernel
                     launch per batch plus at most one scan launch), or the
@@ -16,14 +19,14 @@ Backends ported so far:
 
 Backends and options of layers not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item: ``single_table`` (A5),
-``sharded_scan``/``sharded_amih`` (A6), ``cluster`` (A9),
-``compute_backend="pallas"`` (A4) and ``overlap_verify=True`` (A7).
+``sharded_scan``/``sharded_amih`` (A6), ``cluster`` (A9) and
+``overlap_verify=True`` (A7).
 
 Both backends are EXACT and return, for every row, the reference's ids and
 float64 sims. Entry points that need a device take ``device=``: ``None``
 means the CUDA device (and raises where there is none); ``"cpu"`` runs the
-kernels' plain PyTorch versions. Only the host walk with
-``verify_backend="numpy"``, asked for explicitly, needs no device.
+kernels' plain PyTorch versions. Only the numpy scan and the host walk
+with ``verify_backend="numpy"``, asked for explicitly, need no device.
 """
 
 from __future__ import annotations
@@ -36,9 +39,10 @@ from typing import Any, ClassVar, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..kernels import ops
 from ..obs import trace as _obs
 from .amih import AMIHIndex, AMIHStats
-from .linear_scan import sims_batch_against_db, topk_from_sims
+from .linear_scan import sims_batch_against_db, sims_for_ids, topk_from_sims
 from .packing import WORD_DTYPE, n_words
 
 __all__ = [
@@ -182,7 +186,9 @@ def make_engine(
     length in bits; ``cfg`` goes to the backend's ``build`` (unknown keys
     raise ``TypeError``):
 
-      - "linear_scan" — ``chunk``.
+      - "linear_scan" — ``compute_backend`` ("cuda" | "numpy"),
+                        ``device``, ``chunk`` (rows per host chunk of
+                        the numpy scan).
       - "amih"        — ``m``, ``verify_backend`` ("cuda" | "numpy"),
                         ``probe_backend`` ("device" | "host"),
                         ``probe_fused``, ``probe_stream_cap``,
@@ -213,19 +219,44 @@ def make_engine(
 
 @register_engine
 class LinearScanEngine(SearchEngine):
-    """Exhaustive baseline: batched float64 Eq. 3 sims + per-row
-    deterministic top-k (the selection code of ``linear_scan_knn``)."""
+    """Exhaustive baseline: batched Eq. 3 sims + per-row deterministic
+    top-k (the selection code of ``linear_scan_knn``).
+
+    ``compute_backend`` selects the scoring path:
+
+      - "cuda"  — the streaming device top-K ``kernels.ops.scan_topk`` (the
+        K4 kernel, or its plain version on ``device="cpu"``) over a copy of
+        the codes on ``device``, uploaded once. The device preselects
+        ``k + slack`` candidates in float32; their sims are recomputed on
+        the host in float64 (``sims_for_ids``) and re-ranked, so the
+        returned (ids, sims) equal ``linear_scan_knn``'s bit for bit. The
+        reference calls this backend "pallas".
+      - "numpy" — chunked host popcounts in float64 (no device).
+    """
 
     name = "linear_scan"
 
-    # Cap on live sims-matrix elements: query rows are processed in
-    # groups of max(1, _SIMS_BUDGET // n) so peak scratch stays ~64 MB.
+    # Cap on live sims-matrix elements of the numpy scan: query rows are
+    # processed in groups of max(1, _SIMS_BUDGET // n) so peak scratch
+    # stays ~64 MB.
     _SIMS_BUDGET = 1 << 23
 
-    def __init__(self, db_words: np.ndarray, p: int, chunk: int):
+    # Device preselect slack: candidates fetched beyond k so float32
+    # rounding at the selection boundary cannot evict a true top-k item
+    # (distinct Eq. 3 sims differ by more than float32 resolution for
+    # p <= ~192; beyond that the slack grows with p). The reference's rule.
+    @property
+    def _topk_slack(self) -> int:
+        return 16 + max(0, self.p - 128) // 4
+
+    def __init__(self, db_words: np.ndarray, p: int, chunk: int,
+                 compute_backend: str = "cuda", device=None):
         self.db_words = np.ascontiguousarray(db_words, dtype=WORD_DTYPE)
         self.p = p
         self.chunk = chunk
+        self.compute_backend = compute_backend
+        self.device = device
+        self._db_dev = None   # codes on the device, uploaded on first use
 
     @classmethod
     def build(
@@ -233,17 +264,20 @@ class LinearScanEngine(SearchEngine):
         db_words: np.ndarray,
         p: int,
         chunk: int = 1 << 15,
-        compute_backend: str = "numpy",
+        compute_backend: str = "cuda",
+        device=None,
         **cfg: Any,
     ) -> "LinearScanEngine":
         if cfg:
             raise TypeError(f"unknown linear_scan options: {sorted(cfg)}")
-        if compute_backend != "numpy":
-            raise NotImplementedError(
-                f"compute_backend={compute_backend!r} (the device scan "
-                f"kernels) is not ported yet: ROADMAP A4"
+        if compute_backend not in ("cuda", "numpy"):
+            raise ValueError(
+                f"unknown compute_backend {compute_backend!r}: the port's "
+                f"are 'cuda' (the reference's 'pallas') and 'numpy'"
             )
-        return cls(db_words, p, chunk)
+        if compute_backend == "cuda":
+            device = ops.resolve_device(device)
+        return cls(db_words, p, chunk, compute_backend, device)
 
     @property
     def n(self) -> int:
@@ -255,22 +289,56 @@ class LinearScanEngine(SearchEngine):
         k_eff = min(k, self.n)
         with _obs.current().span("engine.knn_batch", cat="engine",
                                  backend=self.name, B=B, k=k_eff):
-            ids_out = np.empty((B, k_eff), dtype=np.int64)
-            sims_out = np.empty((B, k_eff), dtype=np.float64)
-            group = max(1, self._SIMS_BUDGET // max(self.n, 1))
-            for lo in range(0, B, group):
-                sims = sims_batch_against_db(
-                    q[lo : lo + group], self.db_words, chunk=self.chunk
-                )
-                for i in range(sims.shape[0]):
-                    ids_out[lo + i], sims_out[lo + i] = topk_from_sims(
-                        sims[i], k_eff
-                    )
+            if self.compute_backend == "cuda" and k_eff > 0:
+                ids_out, sims_out = self._knn_batch_device(q, k_eff)
+            else:
+                ids_out, sims_out = self._knn_batch_host(q, k_eff)
             stats = EngineStats(
                 backend=self.name, queries=B,
                 per_query=[SearchStats(retrieved=self.n) for _ in range(B)],
             )
             return ids_out, sims_out, stats
+
+    def _knn_batch_host(self, q, k_eff):
+        B = q.shape[0]
+        ids_out = np.empty((B, k_eff), dtype=np.int64)
+        sims_out = np.empty((B, k_eff), dtype=np.float64)
+        group = max(1, self._SIMS_BUDGET // max(self.n, 1))
+        for lo in range(0, B, group):
+            sims = sims_batch_against_db(
+                q[lo : lo + group], self.db_words, chunk=self.chunk
+            )
+            for i in range(sims.shape[0]):
+                ids_out[lo + i], sims_out[lo + i] = topk_from_sims(
+                    sims[i], k_eff
+                )
+        return ids_out, sims_out
+
+    def _knn_batch_device(self, q, k_eff):
+        """Device streaming top-K preselect + exact float64 host rerank.
+        The fetch size and the batch are padded to power-of-two buckets as
+        in the reference (zero query rows score 0.0 and are sliced off)."""
+        if self._db_dev is None:
+            self._db_dev = ops.to_device(self.db_words, self.device)
+        B = q.shape[0]
+        k_fetch = min(
+            self.n, ops.pad_bucket(k_eff + self._topk_slack, minimum=8)
+        )
+        Bp = ops.pad_bucket(B, minimum=8)
+        qp = np.zeros((Bp, q.shape[1]), dtype=q.dtype)
+        qp[:B] = q
+        _, ids32 = ops.scan_topk(ops.to_device(qp, self.device),
+                                 self._db_dev, k_fetch)
+        fetched = ids32[:B].cpu().numpy().astype(np.int64)   # (B, k_fetch)
+        ids_out = np.empty((B, k_eff), dtype=np.int64)
+        sims_out = np.empty((B, k_eff), dtype=np.float64)
+        for i in range(B):
+            cand = fetched[i]
+            sub = sims_for_ids(q[i], self.db_words, cand)    # exact float64
+            order = np.lexsort((cand, -sub))[:k_eff]
+            ids_out[i] = cand[order]
+            sims_out[i] = sub[order]
+        return ids_out, sims_out
 
 
 @register_engine

@@ -33,6 +33,9 @@ KERNELS = {
     "verify_grouped": "verify_grouped.cu",
     "probe_walk": "probe_walk.cu",
     "probe_scan": "probe_scan.cu",
+    "hamming_scan": "hamming_scan.cu",
+    "blockmax_scan": "blockmax_scan.cu",
+    "verify_tuples": "verify_tuples.cu",
 }
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -47,6 +50,9 @@ _ENTRY = {
     "verify_grouped": ("verify_grouped_launch", [_P, _P, _P]),
     "probe_scan": ("probe_scan_launch", [_P, _P, _P]),
     "probe_walk": ("probe_walk_launch", [_P, _P, _P, _P]),
+    "hamming_scan": ("hamming_scan_launch", [_P, _P, _P]),
+    "blockmax_scan": ("blockmax_scan_launch", [_P, _P, _P]),
+    "verify_tuples": ("verify_tuples_launch", [_P, _P, _P]),
 }
 
 _LOCK = threading.Lock()
@@ -159,13 +165,15 @@ def call(lib: ctypes.CDLL, name: str, ptrs, scalars, stream: int,
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def require(t, name: str, shape=None, device=None) -> int:
-    """Check one kernel operand (contiguous int32, ``shape`` where given,
-    on ``device`` where given) and return its address."""
+def require(t, name: str, shape=None, device=None, dtype=None) -> int:
+    """Check one kernel operand (contiguous, of ``dtype``, int32 by
+    default, ``shape`` where given, on ``device`` where given) and return
+    its address."""
     import torch
 
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    dtype = torch.int32 if dtype is None else dtype
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):

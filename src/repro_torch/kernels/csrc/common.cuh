@@ -1,7 +1,8 @@
-// Device code shared by the port's three kernels (verify_grouped.cu,
-// probe_walk.cu, probe_scan.cu): the exact Hamming-tuple verify of one
-// packed query against one packed code, fused with the bucket-key packing
-// of the reference's grouped verify kernel.
+// Device code shared by the port's kernels (verify_grouped.cu,
+// probe_walk.cu, probe_scan.cu, hamming_scan.cu, blockmax_scan.cu,
+// verify_tuples.cu): the exact Hamming tuple of one packed query against
+// one packed code, its bucket-key packing (the reference's grouped verify)
+// and its Eq. 3 score (the reference's scan kernels).
 //
 // Packed codes are W 32-bit words per row, LSB-first (the host's uint32
 // words, viewed as int32 by torch). For query q and code c:
@@ -32,12 +33,12 @@ __device__ __forceinline__ int tuple_key(const int* __restrict__ q,
   return r10 * (p + 1) + r01;
 }
 
-// The same key with the code already in registers (c[w] for w < W).
-__device__ __forceinline__ int tuple_key_regs(const int* __restrict__ q,
-                                              const int (&c)[MAX_WORDS],
-                                              int W, int p) {
-  int r10 = 0;
-  int r01 = 0;
+// The tuple (r10, r01) with the code already in registers (c[w], w < W).
+__device__ __forceinline__ void tuple_counts_regs(const int* __restrict__ q,
+                                                  const int (&c)[MAX_WORDS],
+                                                  int W, int& r10, int& r01) {
+  r10 = 0;
+  r01 = 0;
 #pragma unroll
   for (int w = 0; w < MAX_WORDS; ++w) {
     if (w < W) {
@@ -47,5 +48,36 @@ __device__ __forceinline__ int tuple_key_regs(const int* __restrict__ q,
       r01 += __popc(~qw & cw);
     }
   }
+}
+
+// The packed key with the code already in registers.
+__device__ __forceinline__ int tuple_key_regs(const int* __restrict__ q,
+                                              const int (&c)[MAX_WORDS],
+                                              int W, int p) {
+  int r10, r01;
+  tuple_counts_regs(q, c, W, r10, r01);
   return r10 * (p + 1) + r01;
+}
+
+// Load code row `row` (W <= MAX_WORDS words) into registers.
+__device__ __forceinline__ void load_code(const int* __restrict__ db,
+                                          long long row, int W,
+                                          int (&c)[MAX_WORDS]) {
+#pragma unroll
+  for (int w = 0; w < MAX_WORDS; ++w) c[w] = w < W ? db[row * W + w] : 0;
+}
+
+// Eq. 3 cosine of a query with popcount z against a code with tuple
+// (r10, r01), in float32 as the reference's `scores_from_tuples`:
+//   num = z - r10, den_sq = z * (z - r10 + r01),
+//   score = num * (1 / sqrt(den_sq)), or 0.0 where den_sq <= 0.
+// num and den_sq are exact integers (< 2^24); the square root and the
+// reciprocal are the correctly rounded intrinsics (never rsqrtf), so the
+// score has the same bits as the plain PyTorch version's.
+__device__ __forceinline__ float eq3_score(int z, int r10, int r01) {
+  const float zf = static_cast<float>(z);
+  const float r10f = static_cast<float>(r10);
+  const float num = zf - r10f;
+  const float den_sq = zf * (zf - r10f + static_cast<float>(r01));
+  return den_sq > 0.0f ? num * __frcp_rn(__fsqrt_rn(den_sq)) : 0.0f;
 }

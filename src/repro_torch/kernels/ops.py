@@ -3,9 +3,19 @@ port's kernels (the counterpart of the reference's ``kernels/ops.py``).
 
 Every launch bumps ``launches.<op>`` in the port's metrics registry at the
 same site as the reference: ``verify_grouped`` (the host walk's grouped
-verify), ``device_probe`` (one probing walk) and ``device_probe_scan`` (one
-exhaustive fallback scan), plus ``launches.device.<device>``. Launch sites
-record ``launch.*`` spans when tracing is on.
+verify), ``device_probe`` (one probing walk), ``device_probe_scan`` (one
+exhaustive fallback scan) and ``verify`` (``verify_tuples_op``), plus
+``launches.device.<device>``; the linear scan's kernels, which the
+reference does not count, bump ``scan_scores`` (one K4 launch per scored
+chunk) and ``blockmax`` (one K5 launch). Launch sites record ``launch.*``
+spans when tracing is on.
+
+The linear scan (``scan_scores``, ``scan_topk``, ``merge_topk``,
+``scan_topk_pruned``) takes int32 code tensors and runs where they lie:
+the kernels on a CUDA tensor, their plain versions on a CPU tensor. Its
+running top-K is torch ops, ordered as ``jax.lax.top_k`` orders: score
+descending, ties to the lowest position, which the chunk loop keeps equal
+to the lowest id.
 
 Shapes keep the reference's power-of-two padding (``pad_bucket``) even
 though eager PyTorch has no trace cache to bound: the walk's iteration
@@ -26,7 +36,11 @@ import torch
 from ..obs import trace as _obs
 from ..obs.metrics import REGISTRY as _REG
 from . import device_probe
-from .verify_tuples import gather_verify_grouped
+from .blockmax_scan import DEFAULT_BLK_N as BLOCKMAX_BLK_N
+from .blockmax_scan import blockmax_scores
+from .hamming_scan import hamming_scan_scores
+from .ref import popcount32
+from .verify_tuples import gather_verify_grouped, verify_tuples
 
 __all__ = [
     "PendingKeys",
@@ -36,10 +50,15 @@ __all__ = [
     "device_probe_scan_multi_launch",
     "device_probe_walk_batched_launch",
     "device_probe_walk_launch",
+    "merge_topk",
     "pad_bucket",
     "resolve_device",
+    "scan_scores",
+    "scan_topk",
+    "scan_topk_pruned",
     "to_device",
     "verify_tuples_grouped_launch",
+    "verify_tuples_op",
 ]
 
 _LOCK = threading.Lock()
@@ -382,3 +401,138 @@ def device_probe_scan_multi_launch(q_words, gid, *, stack, csr, p: int,
             csr["db_pad"], bundle["inv_pos"], csr["n"], p=p, chunk=chunk,
         )
         return pm[:B]
+
+
+# ------------------------------------------------------------ linear scan
+def query_popcounts(q_words: torch.Tensor) -> torch.Tensor:
+    """(B, W) int32 packed queries -> (B,) int32 set bits (z)."""
+    return popcount32(q_words).sum(dim=-1, dtype=torch.int32)
+
+
+def _scores(q_words, z_q, db_words) -> torch.Tensor:
+    """One K4 launch (its plain version on the CPU), counted."""
+    dkey = device_key(q_words.device)
+    _bump_launch("scan_scores", dkey)
+    with _obs.current().span("launch.scan_scores", cat="kernel",
+                             device=dkey, B=q_words.shape[0],
+                             n=db_words.shape[0]):
+        return hamming_scan_scores(q_words, z_q, db_words)
+
+
+def scan_scores(q_words: torch.Tensor, db_words: torch.Tensor):
+    """(B, W), (N, W) int32 -> (B, N) float32 Eq. 3 cosine scores."""
+    return _scores(q_words, query_popcounts(q_words), db_words)
+
+
+def _topk_first(vals: torch.Tensor, k: int):
+    """``jax.lax.top_k`` of float32 rows: the k largest values, ties to
+    the lowest position. ``torch.topk`` promises no order among ties, so
+    it ranks an int64 key: the value's order-preserving int32 image in the
+    high half, the complemented position in the low half. Returns
+    (values, positions)."""
+    bits = vals.contiguous().view(torch.int32)
+    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    pos = torch.arange(vals.shape[1], dtype=torch.int64, device=vals.device)
+    key = order * (1 << 32) + ((1 << 32) - 1 - pos)
+    sel = torch.topk(key, k, dim=1).indices
+    return torch.gather(vals, 1, sel), sel
+
+
+def _stream_topk(q_words, z_q, db_words, k: int, chunk: int, n_valid=None,
+                 row_ids=None):
+    """Running top-k over ``db_words`` in chunks of ``chunk`` rows:
+    (B, k) float32 sims and int32 ids, -inf and -1 in slots no valid row
+    fills. A row's id is its index, or ``row_ids[index]`` where given
+    (ascending); rows whose id is ``>= n_valid`` score -inf. Each step
+    ranks [best so far, chunk] and every id in the chunk exceeds every id
+    kept, so ties go to the lowest id, as in the reference."""
+    B = q_words.shape[0]
+    N = db_words.shape[0]
+    dev = q_words.device
+    best_sims = torch.full((B, k), float("-inf"), dtype=torch.float32,
+                           device=dev)
+    best_ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
+    for lo in range(0, N, chunk):
+        hi = min(lo + chunk, N)
+        sims = _scores(q_words, z_q, db_words[lo:hi])
+        if row_ids is None:
+            ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        else:
+            ids = row_ids[lo:hi]
+        if n_valid is not None:
+            sims = torch.where(ids[None, :] < n_valid, sims, float("-inf"))
+        all_sims = torch.cat([best_sims, sims], dim=1)
+        all_ids = torch.cat([best_ids, ids[None, :].expand(B, -1)], dim=1)
+        best_sims, pos = _topk_first(all_sims, k)
+        best_ids = torch.gather(all_ids, 1, pos)
+    return best_sims, best_ids
+
+
+def scan_topk(q_words: torch.Tensor, db_words: torch.Tensor, k: int, *,
+              chunk: int = 1 << 16, n_valid=None):
+    """Streaming exact angular top-K: (B, W) x (N, W) int32 -> sims
+    (B, k') float32 and ids (B, k') int32, k' = min(k, N), by descending
+    score, ties to the lowest id. The codes are scored in chunks of
+    ``chunk`` rows (one K4 launch each) with a running top-K merge, so the
+    (B, N) scores never exist at once. ``n_valid`` (an int or a 0-d
+    tensor) masks rows ``>= n_valid`` to -inf: their slots keep id -1."""
+    N = db_words.shape[0]
+    k = min(k, N)
+    chunk = max(1, min(chunk, N))
+    return _stream_topk(q_words, query_popcounts(q_words), db_words, k,
+                        chunk, n_valid)
+
+
+def merge_topk(sims: torch.Tensor, ids: torch.Tensor, k: int):
+    """Merge candidate pools: (B, C) sims and ids -> the top k (B, k) by
+    score, ties to the lowest column (as ``jax.lax.top_k``)."""
+    k = min(k, sims.shape[1])
+    best, pos = _topk_first(sims, k)
+    return best, torch.gather(ids, 1, pos)
+
+
+def scan_topk_pruned(q_words: torch.Tensor, db_words: torch.Tensor, k: int,
+                     *, blk: int = BLOCKMAX_BLK_N):
+    """Block-max pruned EXACT angular top-K: (sims, ids, scanned_fraction).
+
+    Phase 1: the per-block score maxima (one K5 launch). Phase 2: mu_k,
+    the k-th largest block maximum of each query; a block whose maximum is
+    below mu_k for every query holds no top-K item (k items in other
+    blocks score >= mu_k), so only the others are rescored, gathered in
+    id order and streamed through K4 with the running top-K.
+    ``scanned_fraction`` is the float32 share of blocks rescored (a 0-d
+    tensor; 1.0 is no pruning)."""
+    B = q_words.shape[0]
+    N = db_words.shape[0]
+    dev = q_words.device
+    k = min(k, N)
+    blk = max(1, min(blk, N))
+    n_blocks = -(-N // blk)
+    z_q = query_popcounts(q_words)
+    dkey = device_key(dev)
+    _bump_launch("blockmax", dkey)
+    with _obs.current().span("launch.blockmax", cat="kernel", device=dkey,
+                             B=B, n=N):
+        maxima = blockmax_scores(q_words, z_q, db_words, blk_n=blk)
+    kk = min(k, n_blocks)
+    mu_k = torch.topk(maxima, kk, dim=1).values[:, -1]
+    needed = (maxima >= mu_k[:, None]).any(dim=0)           # (n_blocks,)
+    frac = needed.to(torch.float32).mean()
+    blocks = needed.nonzero().flatten()
+    rows = (blocks[:, None] * blk
+            + torch.arange(blk, device=dev)[None, :]).flatten()
+    rows = rows[rows < N]
+    sims, ids = _stream_topk(q_words, z_q, db_words.index_select(0, rows),
+                             k, max(1, min(1 << 16, rows.numel())),
+                             row_ids=rows.to(torch.int32))
+    return sims, ids, frac
+
+
+def verify_tuples_op(q_words: torch.Tensor, cand_words: torch.Tensor):
+    """(W,), (N, W) int32 -> exact (r10, r01) int32 tuples of every
+    candidate (one K6 launch)."""
+    dkey = device_key(q_words.device)
+    _bump_launch("verify", dkey)
+    with _obs.current().span("launch.verify", cat="kernel", device=dkey,
+                             n=cand_words.shape[0]):
+        return verify_tuples(q_words, cand_words)

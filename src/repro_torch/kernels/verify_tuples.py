@@ -1,4 +1,5 @@
-"""K1: grouped candidate verification with the row gather fused in.
+"""K1: grouped candidate verification with the row gather fused in, and
+K6: one query against a block of codes.
 
 ``gather_verify_grouped`` is the port of the reference's gather +
 ``verify_tuples_grouped`` launch (the Pallas kernel body
@@ -9,6 +10,11 @@
 launches the CUDA kernel (``csrc/verify_grouped.cu``); on a CPU tensor it
 runs ``gather_verify_grouped_plain``, the same function in plain PyTorch.
 The keys are exact integers, so kernel and plain version agree exactly.
+
+``verify_tuples`` is the port of the reference's Pallas kernel of the same
+name (``_verify_kernel``): one (W,) query against (N, W) codes -> the
+exact tuples (r10, r01), each (N,) int32, from ``csrc/verify_tuples.cu``
+on a CUDA tensor and from ``verify_tuples_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -16,12 +22,13 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .ref import verify_tuples_grouped_ref
+from .ref import verify_tuples_grouped_ref, verify_tuples_ref
 
-__all__ = ["LAUNCHES", "gather_verify_grouped", "gather_verify_grouped_plain"]
+__all__ = ["LAUNCHES", "gather_verify_grouped", "gather_verify_grouped_plain",
+           "verify_tuples", "verify_tuples_plain"]
 
 # kernel launches so far (bumped where the kernel is launched, nowhere else)
-LAUNCHES = {"verify_grouped": 0}
+LAUNCHES = {"verify_grouped": 0, "verify_tuples": 0}
 
 
 def gather_verify_grouped_plain(q_words, db_words, cand_idx, lengths, p: int):
@@ -63,3 +70,40 @@ def gather_verify_grouped(q_words, db_words, cand_idx, lengths, *, p: int):
             lengths, out, p, _build.stream_of(q_words.device))
     LAUNCHES["verify_grouped"] += 1
     return out
+
+
+def verify_tuples_plain(q_words, cand_words):
+    """(W,), (N, W) int32 -> (r10, r01), each (N,) int32."""
+    return verify_tuples_ref(q_words, cand_words)
+
+
+def _launch_one(lib, q_words, cand_words, r10, r01, stream: int) -> None:
+    (W,) = q_words.shape
+    N = cand_words.shape[0]
+    dev = q_words.device
+    if W > 8:
+        raise ValueError(f"W={W} words exceeds the kernel's 8 (p <= 256)")
+    ptrs = [
+        _build.require(q_words, "q_words", (W,), dev),
+        _build.require(cand_words, "cand_words", (N, W), dev),
+        _build.require(r10, "r10", (N,), dev),
+        _build.require(r01, "r01", (N,), dev),
+    ]
+    _build.call(lib, "verify_tuples", ptrs, [N, W], stream)
+
+
+def verify_tuples(q_words, cand_words):
+    """Exact tuples of one query against every code of a block:
+    (W,), (N, W) int32 -> (r10, r01), each (N,) int32."""
+    if q_words.device.type == "cpu":
+        return verify_tuples_plain(q_words, cand_words)
+    if q_words.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q_words.device}")
+    N = cand_words.shape[0]
+    r10 = torch.empty(N, dtype=torch.int32, device=q_words.device)
+    r01 = torch.empty(N, dtype=torch.int32, device=q_words.device)
+    if N:
+        _launch_one(_build.load("verify_tuples"), q_words, cand_words, r10,
+                    r01, _build.stream_of(q_words.device))
+        LAUNCHES["verify_tuples"] += 1
+    return r10, r01

@@ -12,7 +12,9 @@
 #pragma once
 #include <atomic>
 #include <barrier>
+#include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -49,9 +51,21 @@ constexpr unsigned kEmuCoopThreads = 64;
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+// IEEE float32 square root and reciprocal, rounded to nearest
+inline float __fsqrt_rn(float x) { return std::sqrt(x); }
+inline float __frcp_rn(float x) { return 1.0f / x; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline int atomicMin(int* p, int v) {
   int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
   while (v < old && !__atomic_compare_exchange_n(
+                        p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+inline int atomicMax(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v > old && !__atomic_compare_exchange_n(
                         p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {
   }
   return old;

@@ -169,9 +169,11 @@ def test_index_from_reference_round_trip():
 
 def test_linear_scan_engine_equals_reference():
     db, q = _data(400, 64, 6, seed=4)
-    ri, rs, _ = r_make("linear_scan", db, 64).knn_batch(q, 12)
-    ti, ts, _ = t_make("linear_scan", db, 64).knn_batch(q, 12)
-    assert np.array_equal(ri, ti) and np.array_equal(rs, ts)
+    for r_cfg, t_cfg in (({}, {"compute_backend": "numpy"}),
+                         ({"compute_backend": "pallas"}, {"device": "cpu"})):
+        ri, rs, _ = r_make("linear_scan", db, 64, **r_cfg).knn_batch(q, 12)
+        ti, ts, _ = t_make("linear_scan", db, 64, **t_cfg).knn_batch(q, 12)
+        assert np.array_equal(ri, ti) and np.array_equal(rs, ts)
 
 
 def test_layers_not_ported_raise():
@@ -182,7 +184,7 @@ def test_layers_not_ported_raise():
             t_make(backend, db, 32)
     with pytest.raises(NotImplementedError, match="A7"):
         t_make("amih", db, 32, overlap_verify=True)
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="pallas"):
         t_make("linear_scan", db, 32, compute_backend="pallas")
     eng = t_make("amih", db, 32, device="cpu")
     assert isinstance(eng, AMIHEngine)

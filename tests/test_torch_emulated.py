@@ -24,7 +24,10 @@ from repro_torch.data.synthetic import (
     synthetic_queries_packed,
 )
 from repro_torch.kernels import _build
+from repro_torch.kernels import blockmax_scan as bm
 from repro_torch.kernels import device_probe as dp
+from repro_torch.kernels import hamming_scan as hs
+from repro_torch.kernels import ops
 from repro_torch.kernels import verify_tuples as vt
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
@@ -154,3 +157,41 @@ def test_emulated_scans_equal_plain(emu, walk_calls):
                     torch.zeros(q_words.shape[0], dtype=torch.int32), db_pad,
                     inv_pos[None, :], n_valid, out, p=kw["p"], stream=0)
     assert torch.equal(out, dp.device_probe_scan_plain(*a, **kw))
+
+
+def _scan_operands(p, B, N, seed):
+    """Clustered codes with an all-zero code, and queries near them with a
+    zero-norm query: every branch of the Eq. 3 score."""
+    db = synthetic_binary_codes_packed(N, p, seed=seed, n_clusters=8)
+    q = synthetic_queries_packed(db, p, B, seed=seed + 1)
+    db[5] = 0
+    q[1] = 0
+    q = torch.from_numpy(q.view(np.int32))
+    return q, ops.query_popcounts(q), torch.from_numpy(db.view(np.int32))
+
+
+@pytest.mark.parametrize("p", [64, 128, 200])
+def test_emulated_hamming_scan_equals_plain(emu, p):
+    q, z, db = _scan_operands(p, 11, 300, seed=p)   # ragged query tile
+    out = torch.empty((11, 300), dtype=torch.float32)
+    hs._launch(emu["hamming_scan"], q, z, db, out, 0)
+    want = hs.hamming_scan_scores_plain(q, z, db)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("blk", [128, 2048])
+def test_emulated_blockmax_equals_plain(emu, blk):
+    q, z, db = _scan_operands(128, 11, 700, seed=blk)   # a ragged block
+    out = torch.empty((11, -(-700 // blk)), dtype=torch.float32)
+    bm._launch(emu["blockmax_scan"], q, z, db, out, blk, 0)
+    want = bm.blockmax_scores_plain(q, z, db, blk)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("p", [64, 128])
+def test_emulated_verify_tuples_equals_plain(emu, p):
+    q, _, db = _scan_operands(p, 2, 600, seed=p + 1)
+    r10 = torch.empty(600, dtype=torch.int32)
+    r01 = torch.empty(600, dtype=torch.int32)
+    vt._launch_one(emu["verify_tuples"], q[0].contiguous(), db, r10, r01, 0)
+    _same((r10, r01), vt.verify_tuples_plain(q[0], db))

@@ -15,7 +15,9 @@ from repro_torch.data.synthetic import (
     synthetic_binary_codes_packed,
     synthetic_queries_packed,
 )
+from repro_torch.kernels import blockmax_scan as bm
 from repro_torch.kernels import device_probe as dp
+from repro_torch.kernels import hamming_scan as hs
 from repro_torch.kernels import ops
 from repro_torch.kernels import verify_tuples as vt
 
@@ -147,3 +149,83 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(TypeError, match="int32"):
         vt.gather_verify_grouped(x, x, x, x[0], p=64)
     assert ops.resolve_device(None).type == "cuda"
+
+
+def _scan_operands(p, B, N, seed, device):
+    db = synthetic_binary_codes_packed(N, p, seed=seed)
+    q = synthetic_queries_packed(db, p, B, seed=seed + 1)
+    db[5] = 0                                   # an all-zero code
+    if B > 1:
+        q[1] = 0                                # a zero-norm query
+    q = torch.from_numpy(q.view(np.int32)).to(device)
+    db = torch.from_numpy(db.view(np.int32)).to(device)
+    return q, ops.query_popcounts(q), db
+
+
+def _bits(t):
+    return t.cpu().view(torch.int32)
+
+
+@pytest.mark.parametrize("p,B", [(64, 64), (128, 64), (128, 1), (200, 9)])
+def test_hamming_scan_kernel_equals_plain(cuda, p, B):
+    q, z, db = _scan_operands(p, B, 70_001, seed=p + B, device=cuda)
+    before = hs.LAUNCHES["hamming_scan"]
+    got = hs.hamming_scan_scores(q, z, db)
+    assert hs.LAUNCHES["hamming_scan"] == before + 1
+    assert torch.equal(_bits(got), _bits(hs.hamming_scan_scores_plain(q, z,
+                                                                      db)))
+    assert torch.equal(_bits(got), _bits(hs.hamming_scan_scores_plain(
+        q.cpu(), z.cpu(), db.cpu())))
+
+
+@pytest.mark.parametrize("p,B,blk", [(64, 64, 2048), (128, 1, 2048),
+                                     (128, 9, 1000)])
+def test_blockmax_kernel_equals_plain(cuda, p, B, blk):
+    q, z, db = _scan_operands(p, B, 70_001, seed=p + blk, device=cuda)
+    before = bm.LAUNCHES["blockmax_scan"]
+    got = bm.blockmax_scores(q, z, db, blk_n=blk)
+    assert bm.LAUNCHES["blockmax_scan"] == before + 1
+    assert torch.equal(_bits(got),
+                       _bits(bm.blockmax_scores_plain(q, z, db, blk)))
+
+
+@pytest.mark.parametrize("p", [64, 128])
+def test_verify_tuples_kernel_equals_plain(cuda, p):
+    q, _, db = _scan_operands(p, 2, 300_001, seed=p, device=cuda)
+    before = vt.LAUNCHES["verify_tuples"]
+    got = vt.verify_tuples(q[0].contiguous(), db)
+    assert vt.LAUNCHES["verify_tuples"] == before + 1
+    for g, w in zip(got, vt.verify_tuples_plain(q[0], db)):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("p,B,k", [(64, 64, 10), (128, 1, 100)])
+def test_linear_scan_on_card_equals_plain_on_cpu(cuda, p, B, k):
+    n = 200_000
+    db = synthetic_binary_codes_packed(n, p, seed=p)
+    q = synthetic_queries_packed(db, p, B, seed=p + 1)
+    gpu = make_engine("linear_scan", db, p)
+    cpu = make_engine("linear_scan", db, p, device="cpu")
+    before = hs.LAUNCHES["hamming_scan"]
+    gi, gs, _ = gpu.knn_batch(q, k)
+    assert hs.LAUNCHES["hamming_scan"] == before + -(-n // (1 << 16))
+    ci, cs, _ = cpu.knn_batch(q, k)
+    assert np.array_equal(gi, ci) and np.array_equal(gs, cs)
+    qt = torch.from_numpy(q.view(np.int32)).to(cuda)
+    dt = torch.from_numpy(db.view(np.int32)).to(cuda)
+    full = ops.scan_topk(qt, dt, k)
+    pruned = ops.scan_topk_pruned(qt, dt, k)
+    assert torch.equal(full[0], pruned[0]) and torch.equal(full[1], pruned[1])
+
+
+def test_scan_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros((2, 2), dtype=torch.int64, device=cuda)
+    z = torch.zeros(2, dtype=torch.int32, device=cuda)
+    for call in (lambda: hs.hamming_scan_scores(x, z, x),
+                 lambda: bm.blockmax_scores(x, z, x),
+                 lambda: vt.verify_tuples(x[0], x)):
+        with pytest.raises(TypeError, match="int32"):
+            call()
+    wide = torch.zeros((2, 9), dtype=torch.int32, device=cuda)   # p > 256
+    with pytest.raises(ValueError, match="W=9"):
+        hs.hamming_scan_scores(wide, z, wide)
