@@ -6,7 +6,7 @@
 It imports nothing of JAX and nothing of the reference package. Phases,
 each of which fails the run (non-zero exit) on any error or mismatch:
 
-1. the card (``nvidia-smi``), torch and nvcc versions; the six kernels
+1. the card (``nvidia-smi``), torch and nvcc versions; the seven kernels
    built from ``src/repro_torch/kernels/csrc`` (one nvcc per source, all in
    parallel), with each build's register report;
 2. each kernel against its plain PyTorch version on the card, by equality:
@@ -18,7 +18,9 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    (``probe_fused=False`` with a truncated stream), timed; K4 (linear-scan
    scores), K5 (block maxima) and K6 (one-query tuples) at n = 2^18,
    p in {64, 128}, B = 64 with a zero-norm query and an all-zero code,
-   bit for bit;
+   bit for bit; K7 (flash attention) on ``FLASH_CASES`` in float32 and
+   bf16 against its plain version in float32 (float32 within 2e-5, bf16
+   within 4e-3 * max(1, |plain|));
 3. the two exact paths at full size: n = 10,000,000 clustered codes
    (n_clusters = 256, flip_prob = 0.08), queries from
    ``synthetic_queries_packed`` (flip_prob = 0.05), p in {64, 128},
@@ -42,13 +44,36 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       B in {1, 64}, K = 10 equals ``ops.scan_topk``; ``ops.verify_tuples_op``
       (K6) on one query against all n codes equals the host's tuples. One
       batch at p = 128, B = 64 runs under the profiler and the tracer.
+   c. Retrieval serving, through ``RetrievalService`` with the gemma-2b
+      encoder at full width (``get_config("gemma_2b")``: 18 layers,
+      d_model 2048, 8 q heads of 256 over 1 kv head, d_ff 16384, vocab
+      256,000; random weights from a seeded generator, float32 parameters,
+      bf16 compute), ``RetrievalConfig(code_bits=64, batch_size=32,
+      search_batch_size=64)``, AMIH through the device walk, over 8,192
+      topic-structured documents of 128 tokens (256 topics of 512 token
+      ids, seed 0; each document draws from one topic). Queries: 64
+      held-out documents and 32 corpus documents as self-queries. It
+      prints the distinct codes and the build times (encode, AQBC, index),
+      ms/query at B in {64, 1}, K = 10 (median of 5 warm batches, encoding
+      included), and profiles one encoder batch (K7 time against the
+      GEMMs'). Checks: the B = 64 and B = 1 rows equal the float64 linear
+      scan over the service's codes but for equal-cosine ties; every
+      self-query tops at its own code; two ``run_queued(stream=True)``
+      steps equal ``search_batch``; ``backend="linear_scan"`` on the same
+      codes equals AMIH but for ties; one batch's pooled embeddings through
+      K7 lie within one bf16 step of the largest of them from the same
+      forward through K7's plain version; K7 launched layers x encoder
+      batches times.
    Every kernel launch counter is set to 0 just before each path (a, b)
-   at each p and read just after it;
+   at each p, and before c, and read just after it;
 4. each kernel against its plain version again, on operands captured from
    the main path at full size, with CUDA-event times beside each kernel's
    bound (the bytes it must move at 3.35 TB/s, or its 32-bit integer
    operations and population counts at the card's peak issue rates for
-   them, whichever takes longest; see ``op_rates``).
+   them, or K7's multiply-adds at the dense bf16 tensor rate, whichever
+   takes longest; see ``op_rates`` and ``flash_bound_ms``); K7 also beside
+   ``scaled_dot_product_attention`` on the same tensors (its
+   ``library_ms``; the port never calls it).
 
 Every time is printed with the card's name and power limit. The last two
 lines are the ``kernels`` JSON record and ``{"ok": true, "device": ...}``.
@@ -206,7 +231,8 @@ def max_err(outs, refs) -> int:
 def profile_batch(fn, label, out_dir):
     """One traced call of ``fn`` under ``torch.profiler``: wall time, the
     card's busy time (the sum of its kernels) and the kernels that took
-    it, by device time. The Chrome trace goes to ``out_dir``."""
+    it, by device time. The Chrome trace goes to ``out_dir``. Returns the
+    kernels as (ms, count, name), longest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -234,6 +260,7 @@ def profile_batch(fn, label, out_dir):
         log(f"    {dt:10.4f} ms  x{cnt:<5d} {key[:80]}")
     out_dir.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(out_dir / f"trace_{label}.json"))
+    return rows
 
 
 def span_breakdown(fn, label):
@@ -598,6 +625,336 @@ def scan_path(p, db, batch, singles, chk, want_topk, amih_rows, *, dev,
                        "scan_p128_B64_K10")
 
 
+# ------------------------------------------------------------------- K7
+# Dense rates of one H100 SXM for the K7 bound (NVIDIA's data sheet): bf16
+# on the tensor cores, float32 on the CUDA cores.
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, valid_len): MHA, GQA and MQA,
+# causal or not, windows 16 and 64, valid_len in {1, 37, 100, 160}, a
+# ragged Sq = 100, D in {64, 128, 256}
+FLASH_CASES = [
+    (2, 128, 128, 8, 8, 64, True, 0, None),
+    (2, 128, 128, 8, 2, 128, False, 0, None),
+    (2, 128, 128, 8, 1, 256, True, 0, None),
+    (2, 100, 100, 8, 1, 256, True, 0, None),
+    (1, 160, 160, 4, 4, 64, True, 16, None),
+    (1, 160, 160, 8, 2, 128, True, 64, None),
+    (2, 1, 160, 8, 1, 256, False, 0, 1),
+    (2, 1, 160, 8, 2, 128, False, 0, 37),
+    (2, 1, 160, 8, 1, 64, False, 16, 100),
+    (2, 4, 160, 8, 1, 256, False, 0, 160),
+]
+
+
+def flash_err(fa, got, q, k, v, kw):
+    """Largest difference of K7's output from its plain version computed
+    in float32 on the same inputs; raises beyond the tolerance: 2e-5 for
+    float32 inputs (sums in other orders), and for bf16 inputs
+    4e-3 * max(1, |plain|) elementwise (rounding to bf16 moves a value by
+    at most 2^-9 of it, below 1 by at most 2^-9, plus that slack)."""
+    import torch
+
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    d = (got.float() - want).abs()
+    if got.dtype == torch.float32:
+        bad = d > 2e-5
+    else:
+        bad = d > 4e-3 * torch.clamp(want.abs(), min=1.0)
+    if bool(bad.any()):
+        raise AssertionError(f"K7 differs from its plain version by "
+                             f"{float(d.max())} ({got.dtype}, {kw})")
+    return float(d.max())
+
+
+def check_flash_cases(fa, torch, dev):
+    """Phase 2: K7 against its plain version on ``FLASH_CASES``, float32
+    and bf16, v drawn from [-1, 1). Returns the largest difference by
+    dtype."""
+    worst = {}
+    saved = dict(fa.LAUNCHES)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for (B, Sq, Sk, Hq, Hkv, D, causal, window, vl) in FLASH_CASES:
+        kw = {"causal": causal, "window": window, "valid_len": vl}
+        q = torch.randn((B, Sq, Hq, D), generator=g, device=dev)
+        k = torch.randn((B, Sk, Hkv, D), generator=g, device=dev)
+        v = torch.rand((B, Sk, Hkv, D), generator=g, device=dev) * 2 - 1
+        for dt in (torch.float32, torch.bfloat16):
+            qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+            got = fa.flash_attention(qd, kd, vd, **kw)
+            torch.cuda.synchronize()
+            name = str(dt).split(".")[-1]
+            worst[name] = max(worst.get(name, 0.0),
+                              flash_err(fa, got, qd, kd, vd, kw))
+    fa.LAUNCHES.update(saved)                 # comparisons do not count
+    return worst
+
+
+def flash_bound_ms(q, k, kw):
+    """Least time of one K7 call: q, k and v read once and the output
+    written once at the memory rate, or the QK^T and PV multiply-adds of
+    the (query, key) pairs the masks keep at the dense rate of the input
+    type, whichever takes longest."""
+    import numpy as np
+    import torch
+
+    B, Sq, Hq, D = q.shape
+    Sk = k.shape[1]
+    qp = np.arange(Sq)[:, None]
+    kp = np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
+    if kw.get("valid_len") is not None:
+        ok &= kp < kw["valid_len"]
+    if kw.get("causal"):
+        ok &= qp >= kp
+    if kw.get("window", 0) > 0 and kw.get("valid_len") is None:
+        ok &= qp - kp < kw["window"]
+    flops = 4.0 * D * B * Hq * int(ok.sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    rate = BF16_TENSOR_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def check_flash_call(fa, a, kw, reps=20):
+    """Phase 4: K7 on one main-path call's operands: its difference from
+    the plain version (both in the call's dtype, and checked against the
+    plain version in float32), CUDA-event times of K7 and of
+    ``scaled_dot_product_attention`` (the library call, on views of the
+    same tensors), the plain version's host-clock time around one call,
+    and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = a
+    saved = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    flash_err(fa, got, q, k, v, kw)
+    plain = fa.flash_attention_plain(q, k, v, **kw)
+    entry = {"max_abs_err": float((got.float() - plain.float()).abs().max())}
+    entry["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps)
+    t0 = time.perf_counter()
+    fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    entry["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    if kw.get("window", 0) or kw.get("valid_len") is not None:
+        raise AssertionError("the library yardstick takes no window")
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=bool(kw.get("causal")), enable_gqa=True)
+
+    lib = sdpa().transpose(1, 2)
+    entry["library_diff"] = float((lib.float() - plain.float()).abs().max())
+    entry["library_ms"] = cuda_ms(sdpa, reps)
+    entry["bound_ms"], entry["bound_by"] = flash_bound_ms(q, k, kw)
+    entry["shape"] = (f"q {tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype}, "
+                      f"{kw}")
+    fa.LAUNCHES.update(saved)                 # comparisons do not count
+    return entry
+
+
+# ------------------------------------------------------- retrieval serving
+N_DOCS = 8192          # corpus documents
+DOC_LEN = 128          # tokens per document
+N_TOPICS = 256         # topics of the synthetic corpus
+TOPIC_VOCAB = 512      # token ids per topic
+
+
+def retrieval_path(dev, tag, zero_counts):
+    """Phase 3c: retrieval serving at the encoder's full width (see the
+    module docstring). Returns its measurements and K7's main-path call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import make_engine
+    from repro_torch.core.linear_scan import (
+        sims_against_db,
+        sims_for_ids,
+        topk_from_sims,
+    )
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.obs import trace
+    from repro_torch.serve import RetrievalConfig, RetrievalService
+
+    cfg = get_config("gemma_2b")
+    t0 = time.perf_counter()
+    params = Model(cfg).init_params(SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"  gemma-2b at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}x{cfg.head_dim_} q heads over "
+        f"{cfg.n_kv_heads} kv head, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size:,}): {cfg.param_count():,} params, "
+        f"{cfg.param_dtype} (compute {cfg.compute_dtype}), init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+
+    # topic-structured documents: each draws its tokens from one topic
+    rng = np.random.default_rng(SEED)
+    topics = rng.integers(1, cfg.vocab_size, (N_TOPICS, TOPIC_VOCAB))
+
+    def draw(n):
+        t = rng.integers(0, N_TOPICS, n)
+        cols = rng.integers(0, TOPIC_VOCAB, (n, DOC_LEN))
+        return topics[t[:, None], cols].astype(np.int32)
+
+    docs = draw(N_DOCS)
+    held = draw(64)                                   # held-out queries
+    self_ids = np.sort(rng.choice(N_DOCS, 32, replace=False))
+    selfq = docs[self_ids]                            # self-queries
+
+    svc = RetrievalService(cfg, params, RetrievalConfig(
+        code_bits=64, batch_size=32, search_batch_size=64))
+    pooled = svc._pooled
+    batches = [0]
+
+    def counted_pooled(tokens):
+        batches[0] += 1
+        return pooled(tokens)
+
+    svc._pooled = counted_pooled
+    res = {}
+    zero_counts()
+    with Recorder([(layers_mod, "flash_attention")]) as frec:
+        tr = trace.enable()
+        try:
+            info = svc.build_index(docs)
+        finally:
+            trace.disable()
+        built = {s["name"]: s["dur"] / 1e6 for s in tr.drain()
+                 if s["name"].startswith("retrieval.")}
+        res["encode_s"] = built["retrieval.encode"]
+        res["aqbc_s"] = built["retrieval.aqbc"]
+        res["index_s"] = built["retrieval.index"]
+        distinct = len(np.unique(svc.db_words, axis=0))
+        log(f"  build: {N_DOCS:,} docs x {DOC_LEN} tokens, encode "
+            f"{res['encode_s']:.2f} s ({res['encode_s'] * 1e3 / N_DOCS:.4f} "
+            f"ms/doc, {N_DOCS * DOC_LEN / res['encode_s']:,.0f} tokens/s), "
+            f"AQBC learn {res['aqbc_s']:.3f} s ({svc.rcfg.aqbc_iters} iters, "
+            f"objective {info['aqbc_objective']:.4f}), index "
+            f"{res['index_s']:.3f} s (AMIH m={info['m_tables']:.0f}) {tag}")
+        log(f"  {distinct:,} distinct codes among {N_DOCS:,}"
+            + ("" if distinct > N_DOCS // 100 else
+               " (the codes collapse: the reference's AQBC on the random "
+               "encoder's pooled states)"))
+
+        svc.search_batch(held, 10)                    # warm
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ids, sims, _ = svc.search_batch(held, 10)
+            ms.append((time.perf_counter() - t0) * 1e3 / 64)
+        res["ms_b64"] = statistics.median(ms)
+        svc.search_batch(held[:1], 10)                # warm
+        ms, singles = [], []
+        for j in range(1, 6):
+            t0 = time.perf_counter()
+            singles.append(svc.search_batch(held[j:j + 1], 10))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res["ms_b1"] = statistics.median(ms)
+        log(f"  search_batch K=10: B=64 {res['ms_b64']:.4f} ms/query, B=1 "
+            f"{res['ms_b1']:.4f} ms/query (median of 5 warm batches, "
+            f"encoding included) {tag}")
+
+        # (a) exact against the float64 linear scan over the same codes
+        qcodes = svc.encode_query(held)
+        want = [topk_from_sims(sims_against_db(qc, svc.db_words), 10)
+                for qc in qcodes]
+        exact = same_but_ties(ids, sims, np.stack([w[0] for w in want]),
+                              np.stack([w[1] for w in want]))
+        exact1 = same_but_ties(
+            np.stack([s[0][0] for s in singles]),
+            np.stack([s[1][0] for s in singles]),
+            np.stack([w[0] for w in want[1:6]]),
+            np.stack([w[1] for w in want[1:6]]))
+        ordered = int(np.sum(sims[:, 0] > sims[:, -1]))
+        # (b) every self-query tops at its own code
+        s_ids, s_sims, _ = svc.search_batch(selfq, 10)
+        scodes = svc.encode_query(selfq)
+        at_one = 0
+        for j, i in enumerate(self_ids):
+            own = sims_for_ids(scodes[j], svc.db_words, np.array([i]))[0]
+            if not (own >= 1 - 1e-12 and s_sims[j, 0] == own):
+                raise AssertionError(f"self-query {i} does not top at its "
+                                     f"own code ({s_sims[j, 0]} vs {own})")
+            at_one += int(own == 1.0)
+        # (c) two streamed steps equal search_batch
+        tickets = [svc.submit(q) for q in np.concatenate([held, selfq])]
+        steps = list(svc.run_queued(k=10, stream=True))
+        if len(steps) != 2:
+            raise AssertionError(f"{len(steps)} streamed steps, expected 2")
+        for sr, (w_ids, w_sims) in zip(steps, ((ids, sims),
+                                               (s_ids, s_sims))):
+            if not (np.array_equal(sr.ids, w_ids)
+                    and np.array_equal(sr.sims, w_sims)):
+                raise AssertionError(f"streamed step {sr.step} differs from "
+                                     "search_batch")
+        if not all(t.future.done() for t in tickets):
+            raise AssertionError("a streamed ticket was left unresolved")
+    n_batches = batches[0]
+    k7 = fa.LAUNCHES["flash_attention"]
+    if k7 != cfg.n_layers * n_batches:
+        raise AssertionError(f"{k7} K7 launches for {n_batches} encoder "
+                             f"batches of {cfg.n_layers} layers")
+    res["launches"] = k7
+    res["encoder_batches"] = n_batches
+    # (d) the linear scan on the same codes equals AMIH but for ties
+    lin = make_engine("linear_scan", svc.db_words, 64)
+    l_ids, l_sims, _ = lin.knn_batch(qcodes, 10)
+    exact_lin = same_but_ties(l_ids, l_sims, ids, sims)
+    # (e) pooled embeddings through K7 against K7's plain version
+    saved = dict(fa.LAUNCHES)
+    tok = torch.from_numpy(docs[:32].astype(np.int64)).to(dev)
+    with torch.no_grad():
+        with_k7 = pooled(tok)
+        layers_mod.flash_attention = fa.flash_attention_plain
+        try:
+            with_plain = pooled(tok)
+        finally:
+            layers_mod.flash_attention = fa.flash_attention
+    diff = float((with_k7 - with_plain).abs().max())
+    scale = float(with_plain.abs().max())
+    if not diff <= 2 ** -7 * max(1.0, scale):
+        raise AssertionError(f"pooled embeddings through K7 differ from the "
+                             f"plain version's by {diff} (largest {scale})")
+    log(f"  checks: {exact}/64 B=64 rows and {exact1}/5 B=1 rows equal to "
+        f"the float64 linear scan over the service's codes, the rest but "
+        f"for ids inside equal-cosine ties; {ordered}/64 B=64 rows decided "
+        f"by order (the 10th sim below the first), the rest one all-tied "
+        f"group; 32/32 self-queries top at their own code ({at_one} at "
+        f"exactly 1.0, the rest 1 - 2^-53: Eq. 3 in float64); 2 streamed "
+        f"steps equal to search_batch; linear_scan on the same codes equal "
+        f"to AMIH on {exact_lin}/64 rows, the rest but for ties; pooled "
+        f"embeddings of one batch through K7 within {diff:.3g} of the plain "
+        f"version's (bound {2 ** -7 * max(1.0, scale):.3g}: one bf16 step "
+        f"of the largest, {scale:.3g}); K7 launches {k7} = "
+        f"{cfg.n_layers} layers x {n_batches} encoder batches")
+    res.update(distinct=distinct, exact=exact, ordered=ordered,
+               pooled_diff=diff)
+
+    rows = profile_batch(lambda: pooled(tok), "encode_gemma2b_B32",
+                         ROOT / "chiprun_out")
+    fa.LAUNCHES.update(saved)                 # comparisons do not count
+    k7_ms = sum(dt for dt, _, key in rows if "flash_attention" in key)
+    gemm_ms = sum(dt for dt, _, key in rows
+                  if any(w in key.lower() for w in
+                         ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
+    res.update(k7_ms=k7_ms, gemm_ms=gemm_ms)
+    log(f"  one encoder batch (32 x {DOC_LEN} tokens): K7 {k7_ms:.4f} ms "
+        f"({cfg.n_layers} launches) against GEMMs {gemm_ms:.4f} ms of card "
+        f"time {tag}")
+    (a, kw), = frec.calls["flash_attention"]
+    svc.close()
+    del svc, params, pooled
+    return res, (a, kw)
+
+
 # --------------------------------------------------------------- main path
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -631,6 +988,7 @@ def main() -> int:
     )
     from repro_torch.kernels import _build, device_probe as dp, ops
     from repro_torch.kernels import blockmax_scan as bm
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hamming_scan as hs
     from repro_torch.kernels import verify_tuples as vt
     from repro_torch.obs.metrics import REGISTRY
@@ -699,6 +1057,12 @@ def main() -> int:
     for p in (64, 128):
         names = check_scan_kernels(kernels46, ops, torch, dev, p)
         log(f"  {', '.join(names)} p={p} n=2^18 B=64: equal bit for bit")
+    worst = check_flash_cases(fa, torch, dev)
+    log(f"  K7 flash_attention, {len(FLASH_CASES)} cases x float32/bf16 "
+        f"(MHA, GQA, MQA; causal or not; windows 16, 64; valid_len 1, 37, "
+        f"100, 160; Sq = 100; D 64, 128, 256) against the plain version in "
+        f"float32: within tolerance (float32 2e-5, bf16 "
+        f"4e-3 * max(1, |plain|)), largest differences {worst}")
     torch.cuda.synchronize()
     del eng, eng2, rec
     gc.collect()
@@ -709,7 +1073,7 @@ def main() -> int:
 
     # ---- phase 3: the main path at full size
     log(f"phase 3: main paths, n={N_MAIN:,} clustered codes {tag}")
-    counted = (dp, vt, hs, bm)
+    counted = (dp, vt, hs, bm, fa)
 
     def zero_counts():
         for mod in counted:
@@ -881,12 +1245,18 @@ def main() -> int:
         del db
         gc.collect()
         torch.cuda.empty_cache()
+    log(f"phase 3c: retrieval serving, gemma-2b encoder at full width "
+        f"{tag}")
+    retrieval, k7_call = retrieval_path(dev, tag, zero_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {"verify_grouped": amih_counts["verify_grouped"],
                 "probe_walk": amih_counts["probe_walk"],
                 "probe_scan": amih_counts["probe_scan"],
                 "hamming_scan": scan_counts["hamming_scan"],
                 "blockmax_scan": scan_counts["blockmax_scan"],
-                "verify_tuples": scan_counts["verify_tuples"]}
+                "verify_tuples": scan_counts["verify_tuples"],
+                "flash_attention": retrieval["launches"]}
     log(f"  kernel launches, AMIH path: {amih_counts}")
     log(f"  kernel launches, linear-scan path: {scan_counts}")
     for name, cnt in launches.items():
@@ -936,6 +1306,13 @@ def main() -> int:
                 f"plain {e['plain_ms']:.2f} ms, bound {e['bound_ms']:.4f} ms "
                 f"({e['bound_by']}), equal bit for bit {tag}")
 
+    k7 = check_flash_call(fa, *k7_call)
+    log(f"  flash_attention ({k7['shape']}): kernel {k7['ms']:.4f} ms, "
+        f"plain {k7['plain_ms']:.2f} ms, scaled_dot_product_attention "
+        f"{k7['library_ms']:.4f} ms (differs from plain by "
+        f"{k7['library_diff']:.4g}), bound {k7['bound_ms']:.4f} ms "
+        f"({k7['bound_by']}); within {k7['max_abs_err']:.4g} of plain {tag}")
+
     def pick(names):
         best = None
         for key, e in per.items():
@@ -968,6 +1345,9 @@ def main() -> int:
         ("verify_tuples", "src/repro_torch/kernels/csrc/verify_tuples.cu",
          "src/repro/kernels/verify_tuples.py:134", launches["verify_tuples"],
          scan_meas[128, "verify_tuples"]),
+        ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:125",
+         launches["flash_attention"], k7),
     ):
         if meas is None:
             raise AssertionError(f"no main-path measurement of {name}")
@@ -978,7 +1358,9 @@ def main() -> int:
             "ms": round(float(meas["ms"]), 6),
             "plain_ms": round(float(meas["plain_ms"]), 6),
             "bound_ms": round(float(meas["bound_ms"]), 6),
-            "bound_by": meas["bound_by"], "library_ms": None,
+            "bound_by": meas["bound_by"],
+            "library_ms": (round(float(meas["library_ms"]), 6)
+                           if "library_ms" in meas else None),
         })
     log("summary (ms/query, median of 5 warm batches) " + tag)
     for (p, B, K, med, wpb, spb, bails) in timings:
@@ -986,6 +1368,13 @@ def main() -> int:
             f"walk/batch {wpb:.0f}, scan/batch {spb:.2f}")
     for (p, B, K, med) in scan_timings:
         log(f"  linear scan p={p:3d} B={B:2d} K={K:3d}: {med:.4f} ms/query")
+    r = retrieval
+    log(f"  retrieval (gemma-2b, p=64, K=10): B=64 {r['ms_b64']:.4f}, B=1 "
+        f"{r['ms_b1']:.4f} ms/query; encode "
+        f"{r['encode_s'] * 1e3 / N_DOCS:.4f} ms/doc "
+        f"({N_DOCS * DOC_LEN / r['encode_s']:,.0f} tokens/s); AQBC "
+        f"{r['aqbc_s']:.3f} s, index {r['index_s']:.3f} s; per encoder batch "
+        f"K7 {r['k7_ms']:.4f} ms vs GEMMs {r['gemm_ms']:.4f} ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

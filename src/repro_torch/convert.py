@@ -1,5 +1,5 @@
-"""Carry a reference index across to the port: the counterpart of
-converting weights.
+"""Carry the reference's state across to the port: an AMIH index, and
+the LM encoder's parameters.
 
 The reference's ``AMIHIndex`` exports as plain numpy (``index_state`` of
 either package gives the same dict): ``p``, ``m``, ``id_offset``,
@@ -8,6 +8,10 @@ either package gives the same dict): ``p``, ``m``, ``id_offset``,
 and ``sorted_ids`` (the row ids in that order). ``index_from_reference``
 builds the port's ``AMIHIndex`` from that state as it is — no re-sorting —
 so both packages search the very same tables.
+
+``params_from_reference`` takes the reference's parameter tree with its
+leaves as numpy arrays (the caller does the ``np.asarray``) and returns
+the port's dict of tensors with the same keys, shapes and dtypes.
 """
 
 from __future__ import annotations
@@ -15,11 +19,13 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from .core.amih import AMIHIndex, _SubTable
 from .core.packing import WORD_DTYPE, n_words, substring_spans
+from .kernels.ops import resolve_device
 
-__all__ = ["index_from_reference", "index_state"]
+__all__ = ["index_from_reference", "index_state", "params_from_reference"]
 
 
 def index_state(index) -> Dict[str, Any]:
@@ -71,3 +77,19 @@ def index_from_reference(state: Dict[str, Any], **options) -> AMIHIndex:
     return AMIHIndex.from_tables(
         db, p, m, tables, id_offset=int(state["id_offset"]), **options
     )
+
+
+def params_from_reference(tree, device=None):
+    """The port's parameters from the reference's tree of numpy arrays,
+    on ``device`` (None: the CUDA device)."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        a = np.asarray(x)
+        if not a.flags.writeable:          # torch wants memory it may own
+            a = a.copy()
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return conv(tree)

@@ -84,13 +84,19 @@ class EngineStats:
     lazily-aggregated totals (``aggregate`` sums every numeric counter;
     bools count occurrences; ``max_radius`` aggregates with max).
     ``cache_hits`` counts rows answered from the engine's hot-query cache;
-    ``cache_info`` snapshots the process-wide probing caches."""
+    ``cache_info`` snapshots the process-wide probing caches. Streaming
+    serving (``pipeline.stream``) fills ``queue_depth`` (queries still
+    waiting behind the step) and ``latency_ms`` (rolling answered-query
+    latency percentiles); both keep their defaults for direct
+    ``knn_batch`` calls."""
 
     backend: str
     queries: int = 0
     per_query: List[Optional[object]] = field(default_factory=list)
     cache_hits: int = 0
     cache_info: Dict[str, int] = field(default_factory=dict)
+    queue_depth: int = 0
+    latency_ms: Dict[str, float] = field(default_factory=dict)
 
     _MAX_COUNTERS = frozenset({"max_radius"})
 

@@ -36,6 +36,7 @@ KERNELS = {
     "hamming_scan": "hamming_scan.cu",
     "blockmax_scan": "blockmax_scan.cu",
     "verify_tuples": "verify_tuples.cu",
+    "flash_attention": "flash_attention.cu",
 }
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -53,6 +54,7 @@ _ENTRY = {
     "hamming_scan": ("hamming_scan_launch", [_P, _P, _P]),
     "blockmax_scan": ("blockmax_scan_launch", [_P, _P, _P]),
     "verify_tuples": ("verify_tuples_launch", [_P, _P, _P]),
+    "flash_attention": ("flash_attention_launch", [_P, _P, _P]),
 }
 
 _LOCK = threading.Lock()

@@ -3,7 +3,8 @@
 //
 // One block runs as std::threads (blockDim threads); __syncthreads is a
 // barrier over the block, warp shuffles exchange through a per-warp buffer
-// between two warp barriers, atomics are the compiler's. A cooperative
+// between two warp barriers, atomics are the compiler's, and the float
+// math functions (expf, fmaf, fmaxf, sqrt) are <cmath>'s. A cooperative
 // launch runs as ONE block, so a grid sync is a block barrier and
 // __shared__ (made `static`) is block memory; an ordinary launch runs its
 // blocks one after another. Enough to hold a kernel's logic against its
@@ -107,6 +108,15 @@ inline int emu_shfl(int v, int delta) {
 }
 inline int __shfl_up_sync(unsigned, int v, int o) { return emu_shfl(v, -o); }
 inline int __shfl_down_sync(unsigned, int v, int o) { return emu_shfl(v, o); }
+// butterfly exchange with lane ^ mask (the whole warp takes part)
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  emu_block->buf[w][l] = __float_as_int(v);
+  emu_block->warp_bar[w]->arrive_and_wait();
+  const int r = emu_block->buf[w][(l ^ mask) & 31];
+  emu_block->warp_bar[w]->arrive_and_wait();
+  return __int_as_float(r);
+}
 
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }

@@ -26,6 +26,7 @@ from repro_torch.data.synthetic import (
 from repro_torch.kernels import _build
 from repro_torch.kernels import blockmax_scan as bm
 from repro_torch.kernels import device_probe as dp
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hamming_scan as hs
 from repro_torch.kernels import ops
 from repro_torch.kernels import verify_tuples as vt
@@ -195,3 +196,39 @@ def test_emulated_verify_tuples_equals_plain(emu, p):
     r01 = torch.empty(600, dtype=torch.int32)
     vt._launch_one(emu["verify_tuples"], q[0].contiguous(), db, r10, r01, 0)
     _same((r10, r01), vt.verify_tuples_plain(q[0], db))
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, valid_len): GQA and MQA, a ragged
+# query tile, a window, decode over part of a cache, no key at all
+FLASH_CASES = [
+    (1, 20, 20, 2, 2, 32, True, 0, None),
+    (1, 37, 50, 4, 1, 64, False, 0, None),
+    (1, 33, 40, 2, 1, 32, True, 16, None),
+    (2, 3, 60, 4, 2, 32, False, 8, 37),
+    (1, 4, 20, 2, 1, 32, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emulated_flash_attention_matches_plain(emu, case, dtype):
+    """K7 against its plain version in float32: within 2e-5 for float32
+    inputs (the sums run in other orders), and for bf16 inputs within 4e-3,
+    half a bf16 step below 1 plus that slack (v is drawn from [-1, 1), so
+    every output, an average of v rows, lies below 1)."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, valid_len = case
+    rng = np.random.default_rng(Sq + Sk)
+    q = torch.from_numpy(rng.normal(size=(B, Sq, Hq, D)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32))
+    v = torch.from_numpy(rng.uniform(-1, 1, size=(B, Sk, Hkv, D))
+                         .astype(np.float32))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    out = torch.empty_like(q)
+    fa._launch(emu["flash_attention"], q, k, v, out, causal, window,
+               valid_len, 0)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window,
+                                    valid_len=valid_len)
+    tol = 2e-5 if dtype == torch.float32 else 4e-3
+    assert out.dtype == dtype
+    assert float((out.float() - want).abs().max()) <= tol

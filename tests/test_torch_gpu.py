@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_tiny
 from repro_torch.core.engine import make_engine
 from repro_torch.data.synthetic import (
     synthetic_binary_codes_packed,
@@ -17,9 +18,12 @@ from repro_torch.data.synthetic import (
 )
 from repro_torch.kernels import blockmax_scan as bm
 from repro_torch.kernels import device_probe as dp
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hamming_scan as hs
 from repro_torch.kernels import ops
 from repro_torch.kernels import verify_tuples as vt
+from repro_torch.models.api import Model
+from repro_torch.serve.retrieval import RetrievalConfig, RetrievalService
 
 pytestmark = pytest.mark.gpu
 
@@ -229,3 +233,80 @@ def test_scan_wrappers_raise_instead_of_falling_back(cuda):
     wide = torch.zeros((2, 9), dtype=torch.int32, device=cuda)   # p > 256
     with pytest.raises(ValueError, match="W=9"):
         hs.hamming_scan_scores(wide, z, wide)
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, valid_len): MHA, GQA and MQA,
+# causal or not, windows, decode over part of a cache, a ragged Sq, and
+# the encoder's own shape at a smaller batch; D = 32 is the tiny gemma's
+FLASH_CASES = [
+    (2, 128, 128, 4, 4, 64, True, 0, None),
+    (2, 24, 24, 4, 1, 32, True, 0, None),
+    (2, 100, 100, 8, 2, 128, False, 0, None),
+    (2, 128, 128, 8, 1, 256, True, 0, None),
+    (1, 160, 160, 4, 4, 64, True, 16, None),
+    (1, 160, 160, 4, 1, 128, True, 64, None),
+    (2, 1, 160, 8, 2, 128, False, 0, 37),
+    (2, 1, 160, 8, 1, 256, False, 24, 100),
+    (1, 1, 160, 8, 1, 64, False, 0, 1),
+    (4, 128, 128, 8, 1, 256, True, 0, None),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    """K7 against its plain version in float32 on the same inputs: within
+    2e-5 for float32 inputs, and within 4e-3 for bf16 ones (half a bf16
+    step below 1 plus float32 slack; v in [-1, 1) keeps outputs below 1)."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, valid_len = case
+    g = torch.Generator(device=cuda).manual_seed(Sq + D)
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Sk, Hkv, D), generator=g, device=cuda).to(dtype)
+    v = (torch.rand((B, Sk, Hkv, D), generator=g, device=cuda) * 2 - 1
+         ).to(dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             valid_len=valid_len)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window,
+                                    valid_len=valid_len)
+    tol = 2e-5 if dtype == torch.float32 else 4e-3
+    assert got.dtype == dtype
+    assert float((got.float() - want).abs().max()) <= tol
+
+
+def test_flash_attention_raises_instead_of_falling_back(cuda):
+    q = torch.zeros((1, 4, 2, 48), device=cuda)           # D = 48
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    q = torch.zeros((1, 4, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="flash_attention takes"):
+        fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_tiny_encoder_on_card_runs_k7_and_equals_plain_on_cpu(cuda):
+    """The tiny gemma (head_dim 32) in float32 embeds through K7 on the
+    card, one launch per layer and encode batch, within 1e-4 of the same
+    weights embedded on the CPU through K7's plain version (the GEMMs and
+    the kernel sum in other orders)."""
+    cfg = get_tiny("gemma_2b").replace(compute_dtype="float32")
+    params = Model(cfg).init_params(0, device=cuda)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, cfg.vocab_size, (10, 24)).astype(np.int32)
+    card = RetrievalService(cfg, params,
+                            RetrievalConfig(batch_size=4, device=cuda))
+    host = RetrievalService(cfg, _to(params, "cpu"),
+                            RetrievalConfig(batch_size=4, device="cpu"))
+    before = fa.LAUNCHES["flash_attention"]
+    got = card.embed(toks)
+    assert fa.LAUNCHES["flash_attention"] == before + cfg.n_layers * 3
+    want = host.embed(toks)
+    assert got.shape == (10, cfg.d_model) and np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= 1e-4
