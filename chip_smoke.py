@@ -8,7 +8,10 @@ each of which fails the run (non-zero exit) on any error or mismatch:
 
 1. the card (``nvidia-smi``), torch and nvcc versions; the seven kernels
    built from ``src/repro_torch/kernels/csrc`` (one nvcc per source, all in
-   parallel), with each build's register report;
+   parallel), with each build's register report; K7's registers, shared
+   memory and spill bytes per instantiation, and its HGMMA instructions
+   (``cuobjdump -sass``): a bf16 instantiation that spills, or a library
+   without HGMMA, fails the run;
 2. each kernel against its plain PyTorch version on the card, by equality:
    K1 (grouped verify) at p in {64, 128}, B = 64, C = 2048 with ragged
    lengths that include 0; K2 (probing walk) and K3 (scan) on the operands
@@ -18,9 +21,10 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    (``probe_fused=False`` with a truncated stream), timed; K4 (linear-scan
    scores), K5 (block maxima) and K6 (one-query tuples) at n = 2^18,
    p in {64, 128}, B = 64 with a zero-norm query and an all-zero code,
-   bit for bit; K7 (flash attention) on ``FLASH_CASES`` in float32 and
-   bf16 against its plain version in float32 (float32 within 2e-5, bf16
-   within 4e-3 * max(1, |plain|));
+   bit for bit; K7 (flash attention) on ``FLASH_CASES`` (G = 1 to 8 and
+   3, ragged tiles, windows, decode rows) in float32 and bf16 against its
+   plain version in float32 (float32 within 2e-5, bf16 within
+   4e-3 * max(1, |plain|));
 3. the two exact paths at full size: n = 10,000,000 clustered codes
    (n_clusters = 256, flip_prob = 0.08), queries from
    ``synthetic_queries_packed`` (flip_prob = 0.05), p in {64, 128},
@@ -65,7 +69,8 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       forward through K7's plain version; K7 launched layers x encoder
       batches times.
    Every kernel launch counter is set to 0 just before each path (a, b)
-   at each p, and before c, and read just after it;
+   at each p, and before c, and read just after it; K2 and K3 launches
+   on path a are also counted by wrapper and query rows;
 4. each kernel against its plain version again, on operands captured from
    the main path at full size, with CUDA-event times beside each kernel's
    bound (the bytes it must move at 3.35 TB/s, or its 32-bit integer
@@ -157,6 +162,7 @@ class Recorder:
         self.sites = sites          # (module, function name) pairs to wrap
         self.keep = keep
         self.calls = {}
+        self.counts = {}            # (function name, query rows) -> calls
         self.orig = []
 
     def __enter__(self):
@@ -165,6 +171,10 @@ class Recorder:
             self.orig.append((mod, name, fn))
 
             def wrapped(*a, _fn=fn, _name=name, **kw):
+                q = a[1] if _name == "device_probe_walk_batched" else a[0]
+                shape = getattr(q, "shape", ())
+                key = (_name, int(shape[0]) if len(shape) else 0)
+                self.counts[key] = self.counts.get(key, 0) + 1
                 calls = self.calls.setdefault(_name, [])
                 if _name == "gather_verify_grouped":
                     if self.keep and (not calls or a[2].numel()
@@ -632,8 +642,9 @@ BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, window, valid_len): MHA, GQA and MQA,
-# causal or not, windows 16 and 64, valid_len in {1, 37, 100, 160}, a
-# ragged Sq = 100, D in {64, 128, 256}
+# causal or not, windows 8, 16, 24 and 64, valid_len in {0, 1, 37, 100,
+# 160}, ragged Sq and Sk (100, 130, 160), D in {32, 64, 128, 256}, G in
+# {1, 2, 3, 4, 8} (G = 3: 64-row tiles that straddle a head group)
 FLASH_CASES = [
     (2, 128, 128, 8, 8, 64, True, 0, None),
     (2, 128, 128, 8, 2, 128, False, 0, None),
@@ -645,7 +656,44 @@ FLASH_CASES = [
     (2, 1, 160, 8, 2, 128, False, 0, 37),
     (2, 1, 160, 8, 1, 64, False, 16, 100),
     (2, 4, 160, 8, 1, 256, False, 0, 160),
+    (2, 130, 130, 8, 1, 256, True, 0, None),
+    (1, 4, 160, 8, 1, 256, False, 0, 0),
+    (1, 130, 160, 4, 1, 128, True, 8, None),
+    (1, 100, 130, 8, 1, 256, False, 24, None),
+    (1, 37, 50, 6, 2, 32, True, 0, None),
 ]
+
+
+def check_flash_build(_build):
+    """Phase 1: K7's registers, static shared memory and spill bytes per
+    instantiation from the build's ptxas report, and its HGMMA
+    instructions; raises if a bf16 instantiation spills or the library
+    holds no HGMMA (its bf16 path would not run on the tensor cores)."""
+    import re
+
+    rep = _build.ptxas_report("flash_attention")
+    bf16 = {}
+    for fn, r in sorted(rep.items()):
+        m = re.search(r"flash_attention_(bf16_kernelI|kernelIf)Li(\d+)E", fn)
+        if not m:
+            continue
+        kind = "bf16" if m.group(1).startswith("bf16") else "float32"
+        log(f"    K7 {kind} D={m.group(2)}: {r['registers']} registers, "
+            f"{r['smem']} bytes static smem, {r['spill']} bytes spilled")
+        if kind == "bf16":
+            bf16[int(m.group(2))] = r
+    if len(bf16) != 4 or any(r["spill"] for r in bf16.values()):
+        raise AssertionError(f"K7's bf16 instantiations: {bf16} (want four, "
+                             "none spilling)")
+    code = _build.sass("flash_attention")
+    if code is None:
+        raise AssertionError("no cuobjdump to read K7's SASS")
+    n = sum("HGMMA" in ln for ln in code.splitlines())
+    if n == 0:
+        raise AssertionError("K7's library holds no HGMMA instruction")
+    serial = (_build.build_log("flash_attention") or "").count("C7520")
+    log(f"    K7: {n} HGMMA instructions in its SASS; {serial} ptxas notes "
+        f"of serialized wgmma (C7520)")
 
 
 def flash_err(fa, got, q, k, v, kw):
@@ -1017,6 +1065,7 @@ def main() -> int:
         regs = [ln.strip() for ln in rep.splitlines() if "registers" in ln]
         log(f"  {name}: {regs[-1] if regs else 'no ptxas report'}")
         _build.load(name)
+    check_flash_build(_build)
 
     # ---- phase 2: kernels vs plain at n = 2^18
     log("phase 2: kernels vs plain versions on the card (equality)")
@@ -1059,8 +1108,9 @@ def main() -> int:
         log(f"  {', '.join(names)} p={p} n=2^18 B=64: equal bit for bit")
     worst = check_flash_cases(fa, torch, dev)
     log(f"  K7 flash_attention, {len(FLASH_CASES)} cases x float32/bf16 "
-        f"(MHA, GQA, MQA; causal or not; windows 16, 64; valid_len 1, 37, "
-        f"100, 160; Sq = 100; D 64, 128, 256) against the plain version in "
+        f"(MHA, GQA, MQA, G = 3; causal or not; windows 8, 16, 24, 64; "
+        f"valid_len 0, 1, 37, 100, 160; Sq, Sk 100, 130, 160; D 32, 64, 128, "
+        f"256) against the plain version in "
         f"float32: within tolerance (float32 2e-5, bf16 "
         f"4e-3 * max(1, |plain|)), largest differences {worst}")
     torch.cuda.synchronize()
@@ -1087,6 +1137,7 @@ def main() -> int:
                 total[c] = total.get(c, 0) + v
 
     amih_counts, scan_counts = {}, {}
+    walk_shapes = {}                      # K2/K3 launches by wrapper and B
     captured = {}
     captured_scan = {}
     timings = []
@@ -1098,6 +1149,7 @@ def main() -> int:
                                       seed=SEED + 1)
         t_gen = time.perf_counter() - t0
         zero_counts()                     # path a: AMIH
+        walk_rec = Recorder(sites(dp, Recorder.WALKS), keep=0).__enter__()
         t0 = time.perf_counter()
         eng = make_engine("amih", db, p, m=m, query_cache_size=0)
         torch.cuda.synchronize()
@@ -1231,6 +1283,9 @@ def main() -> int:
         log(f"  p={p}: host walk + CUDA verify, 4 queries K=10: equal to the "
             f"device path; {host.verify_launches} verify launches, "
             f"{t_host:.1f} s")
+        walk_rec.__exit__(None, None, None)
+        for key, n in walk_rec.counts.items():
+            walk_shapes[key] = walk_shapes.get(key, 0) + n
         add_counts(amih_counts)
         del host, eng
         gc.collect()
@@ -1257,7 +1312,10 @@ def main() -> int:
                 "blockmax_scan": scan_counts["blockmax_scan"],
                 "verify_tuples": scan_counts["verify_tuples"],
                 "flash_attention": retrieval["launches"]}
-    log(f"  kernel launches, AMIH path: {amih_counts}")
+    log(f"  kernel launches, AMIH path: {amih_counts}; K2/K3 by wrapper "
+        f"and query rows: " + ", ".join(
+            f"{name} B={rows}: {n}"
+            for (name, rows), n in sorted(walk_shapes.items())))
     log(f"  kernel launches, linear-scan path: {scan_counts}")
     for name, cnt in launches.items():
         if cnt == 0:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +25,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 __all__ = ["KERNELS", "build_all", "build_dir", "build_log", "call", "load",
-           "nvcc_path"]
+           "nvcc_path", "ptxas_report", "sass"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -38,7 +39,7 @@ KERNELS = {
     "verify_tuples": "verify_tuples.cu",
     "flash_attention": "flash_attention.cu",
 }
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -134,6 +135,45 @@ def build_log(name: str) -> Optional[str]:
     shared memory, spills), if this checkout built it."""
     log = _lib_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else None
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel function (mangled name) of the current build of ``name``:
+    its ``registers``, static ``smem`` bytes and ``spill`` bytes (stores
+    plus loads), from the ``ptxas -v`` lines of its build log ({} if this
+    checkout did not build it)."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in (build_log(name) or "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {"registers": 0, "smem": 0, "spill": 0})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[fn]["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass(name: str) -> Optional[str]:
+    """The SASS of the current build of ``name`` (``cuobjdump -sass``), or
+    None where the toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or str(Path(nvcc_path()).parent /
+                                            "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    return subprocess.run([tool, "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,10 +8,12 @@ and sliding-window masks come from absolute positions, ``valid_len``
 keeps only key slots [0, valid_len) (with ``window``, only the trailing
 ``window`` of them), query head h reads kv head h // (Hq // Hkv), and a
 row with no key left is 0. On a CUDA tensor it launches the CUDA kernel
-(``csrc/flash_attention.cu``); on a CPU tensor it runs
+(``csrc/flash_attention.cu``: bf16 on the tensor cores with ``wgmma``,
+float32 on the CUDA cores); on a CPU tensor it runs
 ``flash_attention_plain``, the same online softmax over kv tiles written
 out in torch ops. The two sum in different orders, so they agree to
-float32 rounding, not bit for bit.
+float32 rounding, not bit for bit (bf16: P enters PV as two bf16 terms,
+about 16 significant bits).
 """
 
 from __future__ import annotations
@@ -109,6 +111,15 @@ def _launch(lib, q, k, v, out, causal: bool, window: int, valid_len,
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes {_DTYPES}, got {q.dtype}")
     dev = q.device
+    if q.dtype == torch.bfloat16:
+        if Hq // Hkv > 64:
+            raise ValueError(f"{Hq // Hkv} query heads per kv head: the bf16 "
+                             "kernel packs at most 64 into a tile")
+        for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: bf16 operands must start on a "
+                                 "16-byte boundary (the kernel's TMA "
+                                 "copies need it)")
     ptrs = [
         _build.require(q, "q", None, dev, q.dtype),
         _build.require(k, "k", None, dev, q.dtype),

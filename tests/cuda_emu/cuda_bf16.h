@@ -1,6 +1,7 @@
-// CPU emulation (see cuda_runtime.h) of the bf16 type and the two
+// CPU emulation (see cuda_runtime.h) of the bf16 type and the
 // conversions the kernels use: bf16 -> float exactly, float -> bf16
-// rounded to nearest even (NaN kept quiet), as the CUDA intrinsics do.
+// rounded to nearest even (NaN kept quiet), as the CUDA intrinsics do, and
+// the raw 16 bits of a bf16.
 #pragma once
 #include <cstdint>
 #include <cstring>
@@ -28,3 +29,5 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   h.x = static_cast<std::uint16_t>(u >> 16);
   return h;
 }
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }

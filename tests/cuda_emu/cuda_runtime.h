@@ -7,14 +7,18 @@
 // math functions (expf, fmaf, fmaxf, sqrt) are <cmath>'s. A cooperative
 // launch runs as ONE block, so a grid sync is a block barrier and
 // __shared__ (made `static`) is block memory; an ordinary launch runs its
-// blocks one after another. Enough to hold a kernel's logic against its
-// plain PyTorch version; timing, occupancy and the real compiler are the
-// card's business.
+// blocks one after another. A launch's dynamic shared memory is a
+// 1024-byte-aligned buffer per block (filled with 0xFF bytes, so a read of
+// what no thread wrote is a bf16 NaN), reached through SM90_DYNAMIC_SMEM
+// (sm90_emu.h); threads 0-127 of a block share a warpgroup barrier.
+// Enough to hold a kernel's logic against its plain PyTorch version;
+// timing, occupancy and the real compiler are the card's business.
 #pragma once
 #include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdlib>
 #include <cstring>
 #include <thread>
 #include <vector>
@@ -24,7 +28,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __restrict__ __restrict
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 
 struct dim3 {
@@ -43,6 +47,7 @@ enum {
   cudaErrorCooperativeLaunchTooLarge = 720,
   cudaDevAttrMultiProcessorCount = 16
 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
@@ -76,7 +81,10 @@ inline int atomicSub(int* p, int v) { return __atomic_fetch_sub(p, v, __ATOMIC_S
 
 struct EmuBlock {
   std::barrier<>* bar;
+  std::barrier<>* wg_bar;  // threads 0-127 (nullptr in smaller blocks)
   std::vector<std::barrier<>*> warp_bar;
+  unsigned char* dyn;      // dynamic shared memory
+  size_t dyn_bytes;
   int buf[64][32];
   std::atomic<int> red;
 };
@@ -127,15 +135,26 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t
 }
 inline cudaError_t cudaGetLastError() { return 0; }
 
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+
 template <class A>
-cudaError_t emu_run(void (*f)(A), dim3 g, dim3 b, void** args) {
+cudaError_t emu_run(void (*f)(A), dim3 g, dim3 b, void** args,
+                    size_t smem = 0) {
   const A a = *reinterpret_cast<A*>(args[0]);
   blockDim = b;
   gridDim = g;
+  const size_t dyn_bytes = (smem + 1023) / 1024 * 1024;
   for (unsigned by = 0; by < g.y; ++by) {
     for (unsigned bx = 0; bx < g.x; ++bx) {
       EmuBlock blk;
       blk.bar = new std::barrier<>(b.x);
+      blk.wg_bar = b.x >= 128 ? new std::barrier<>(128) : nullptr;
+      blk.dyn_bytes = dyn_bytes;
+      blk.dyn = dyn_bytes ? static_cast<unsigned char*>(
+                                std::aligned_alloc(1024, dyn_bytes))
+                          : nullptr;
+      if (blk.dyn) std::memset(blk.dyn, 0xFF, dyn_bytes);
       for (unsigned w = 0; w < (b.x + 31) / 32; ++w)
         blk.warp_bar.push_back(new std::barrier<>(32));
       emu_block = &blk;
@@ -148,6 +167,8 @@ cudaError_t emu_run(void (*f)(A), dim3 g, dim3 b, void** args) {
         });
       for (auto& t : ts) t.join();
       delete blk.bar;
+      delete blk.wg_bar;
+      std::free(blk.dyn);
       for (auto* w : blk.warp_bar) delete w;
     }
   }
@@ -161,6 +182,6 @@ cudaError_t cudaLaunchCooperativeKernel(void (*f)(A), dim3, dim3, void** args,
 }
 template <class A>
 cudaError_t cudaLaunchKernel(void (*f)(A), dim3 g, dim3 b, void** args,
-                             size_t, cudaStream_t) {
-  return emu_run(f, g, b, args);
+                             size_t smem, cudaStream_t) {
+  return emu_run(f, g, b, args, smem);
 }

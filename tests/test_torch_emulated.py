@@ -232,3 +232,128 @@ def test_emulated_flash_attention_matches_plain(emu, case, dtype):
     tol = 2e-5 if dtype == torch.float32 else 4e-3
     assert out.dtype == dtype
     assert float((out.float() - want).abs().max()) <= tol
+
+
+# bf16 only, the tensor-core path: G = 8 with 64-row tiles that straddle
+# positions, Sk over three kv tiles, a window of 24, decode at D = 256 with
+# valid_len = 37, and G = 3 (tiles that straddle a head group)
+FLASH_BF16_CASES = [
+    (1, 130, 130, 8, 1, 128, True, 0, None),
+    (1, 130, 130, 8, 1, 256, True, 0, None),
+    (1, 100, 160, 8, 1, 128, True, 24, None),
+    (1, 70, 70, 8, 1, 256, False, 24, None),
+    (2, 1, 160, 8, 1, 256, False, 0, 37),
+    (1, 4, 160, 8, 1, 256, False, 16, 100),
+    (1, 37, 50, 6, 2, 64, True, 0, None),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BF16_CASES)
+def test_emulated_flash_attention_bf16_tiles_match_plain(emu, case):
+    """K7's bf16 path (GQA-packed 64-row tiles, wgmma products emulated)
+    against the plain version in float32, within 4e-3 (half a bf16 step
+    below 1 plus that slack, as above)."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, valid_len = case
+    rng = np.random.default_rng(Sq * 7 + Sk + D)
+    q = torch.from_numpy(rng.normal(size=(B, Sq, Hq, D)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32))
+    v = torch.from_numpy(rng.uniform(-1, 1, size=(B, Sk, Hkv, D))
+                         .astype(np.float32))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    out = torch.empty_like(q)
+    fa._launch(emu["flash_attention"], q, k, v, out, causal, window,
+               valid_len, 0)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window,
+                                    valid_len=valid_len)
+    assert float((out.float() - want).abs().max()) <= 4e-3
+
+
+def _sw128(off):
+    """The 128-byte swizzle of shared-memory byte offsets (16-byte chunk
+    index XOR the 128-byte row index mod 8)."""
+    return off ^ ((off >> 3) & 0x70)
+
+
+def _desc(addr, lbo, sbo):
+    """A wgmma shared-memory descriptor in the 128-byte swizzle."""
+    return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | \
+        ((sbo >> 4) << 32) | (1 << 62)
+
+
+@pytest.mark.parametrize("trans_b", [0, 1])
+@pytest.mark.parametrize("step", [0, 3])
+def test_emulated_wgmma_tile_matches_matmul(emu, trans_b, step):
+    """The emulated m64n64k16 product alone on one tile, against
+    ``torch.matmul`` in float32: A and B are laid out here from the PTX
+    ISA's canonical layouts (rows of 64 bf16, 128-byte swizzle; B K-major,
+    or MN-major with the transpose bit), the descriptors start ``step``
+    16-deep slices in, and the 128 threads' registers are read back through
+    the documented accumulator fragment. Sums of 16 exact products in
+    float32: within 1e-5."""
+    rng = np.random.default_rng(10 + trans_b + step)
+    a = torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32))
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    r, c = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    img = np.zeros(8192, np.uint16)                # A at 0, B at 8192
+    for base, x in ((0, a), (8192, b)):
+        img[(base + _sw128(r * 128 + 2 * c)) // 2] = \
+            x.view(torch.int16).numpy().astype(np.uint16)
+    if trans_b:     # B (k, n) = b[16 step + k, n]: k rows, n contiguous
+        db = _desc(8192 + 2048 * step, 1024, 1024)
+        bm_ = b[16 * step:16 * step + 16, :]
+    else:           # B (k, n) = b[n, 16 step + k]: n rows, k contiguous
+        db = _desc(8192 + 32 * step, 16, 1024)
+        bm_ = b[:, 16 * step:16 * step + 16].T
+    want = torch.matmul(a[:, 16 * step:16 * step + 16].float(), bm_.float())
+    frag = np.zeros((128, 32), np.float32)
+    lib = emu["flash_attention"]
+    fn = lib.sm90_emu_mma_tile
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong,
+                   ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    raw = img.view(np.uint8)
+    assert fn(raw.ctypes.data, raw.nbytes, _desc(32 * step, 16, 1024), db,
+              trans_b, frag.ctypes.data) == 0
+    t, i = np.meshgrid(np.arange(128), np.arange(32), indexing="ij")
+    w, lane = t // 32, t % 32
+    m = 16 * w + lane // 4 + 8 * ((i // 2) % 2)
+    n = 8 * (i // 4) + 2 * (lane % 4) + i % 2
+    got = torch.zeros((64, 64))
+    got[torch.from_numpy(m), torch.from_numpy(n)] = torch.from_numpy(frag)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_flash_attention_bf16_operands_the_kernel_cannot_take_raise():
+    """The bf16 kernel's TMA copies need 16-byte aligned operands and at
+    most 64 q heads per kv head: anything else raises before a launch."""
+    flat = torch.zeros(4 * 2 * 64 + 1, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 4, 2, 64)                 # 2 bytes off 16
+    kv = torch.zeros((1, 4, 1, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa._launch(None, q, kv, kv, torch.empty(q.shape, dtype=q.dtype), True,
+                   0, None, 0)
+    q = torch.zeros((1, 4, 65, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 64"):
+        fa._launch(None, q, kv, kv, torch.empty_like(q), True, 0, None, 0)
+
+
+def test_ptxas_report_reads_registers_smem_and_spills(monkeypatch):
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z27flash_attention_bf16_kernelILi256EEv12FlashTmaArgs' for 'sm_90a'
+ptxas info    : Function properties for _Z27flash_attention_bf16_kernelILi256EEv12FlashTmaArgs
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 238 registers, used 1 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z22flash_attention_kernelIfLi32EEv9FlashArgs' for 'sm_90a'
+ptxas info    : Function properties for _Z22flash_attention_kernelIfLi32EEv9FlashArgs
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 13312 bytes smem, 400 bytes cmem[0]
+"""
+    monkeypatch.setattr(_build, "build_log", lambda name: log)
+    assert _build.ptxas_report("flash_attention") == {
+        "_Z27flash_attention_bf16_kernelILi256EEv12FlashTmaArgs":
+            {"registers": 238, "smem": 0, "spill": 12},
+        "_Z22flash_attention_kernelIfLi32EEv9FlashArgs":
+            {"registers": 48, "smem": 13312, "spill": 0},
+    }

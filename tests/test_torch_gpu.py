@@ -237,7 +237,9 @@ def test_scan_wrappers_raise_instead_of_falling_back(cuda):
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, window, valid_len): MHA, GQA and MQA,
 # causal or not, windows, decode over part of a cache, a ragged Sq, and
-# the encoder's own shape at a smaller batch; D = 32 is the tiny gemma's
+# the encoder's own shape at a smaller batch; D = 32 is the tiny gemma's;
+# then ragged G = 8 tiles over three kv tiles, a windowed D = 32, decode with
+# no valid key, and G = 3 (64-row tiles that straddle a head group)
 FLASH_CASES = [
     (2, 128, 128, 4, 4, 64, True, 0, None),
     (2, 24, 24, 4, 1, 32, True, 0, None),
@@ -249,6 +251,10 @@ FLASH_CASES = [
     (2, 1, 160, 8, 1, 256, False, 24, 100),
     (1, 1, 160, 8, 1, 64, False, 0, 1),
     (4, 128, 128, 8, 1, 256, True, 0, None),
+    (2, 130, 130, 8, 1, 256, True, 0, None),
+    (1, 70, 70, 2, 1, 32, False, 8, None),
+    (1, 4, 160, 8, 1, 256, False, 0, 0),
+    (1, 37, 50, 6, 2, 64, True, 0, None),
 ]
 
 
@@ -276,6 +282,51 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     assert float((got.float() - want).abs().max()) <= tol
 
 
+def test_flash_attention_bf16_kernel_matches_plain_on_random_shapes(cuda):
+    """K7's bf16 path on 100 seeded random shapes (G up to 16 with tiles
+    that straddle positions and head groups, empty and ragged kv, windows,
+    valid_len 0 to Sk): finite, within 4e-3 * max(1, |plain|) of the plain
+    version in float32."""
+    rng = np.random.default_rng(15)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    for _ in range(100):
+        B, Hkv = int(rng.integers(1, 4)), int(rng.choice([1, 2, 4]))
+        G, D = int(rng.choice([1, 2, 3, 5, 8, 16])), int(rng.choice(
+            fa.SUPPORTED_HEAD_DIMS))
+        Sq = int(rng.choice([1, 4, rng.integers(1, 200)]))
+        Sk = int(rng.choice([0, 1, rng.integers(1, 200), Sq]))
+        kw = {"causal": bool(rng.integers(2)),
+              "window": int(rng.choice([0, 0, 1, 8, 24, 100])),
+              "valid_len": [None, 0, int(rng.integers(0, Sk + 1))][
+                  int(rng.integers(3))]}
+        q = torch.randn((B, Sq, Hkv * G, D), generator=g, device=cuda)
+        k = torch.randn((B, Sk, Hkv, D), generator=g, device=cuda)
+        v = torch.rand((B, Sk, Hkv, D), generator=g, device=cuda) * 2 - 1
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        got = fa.flash_attention(q, k, v, **kw).float()
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        assert bool(torch.isfinite(got).all()), (q.shape, k.shape, kw)
+        assert bool(((got - want).abs()
+                     <= 4e-3 * want.abs().clamp(min=1.0)).all()), \
+            (q.shape, k.shape, kw)
+
+
+def test_flash_attention_bf16_library_runs_on_the_tensor_cores(cuda):
+    """K7's library holds HGMMA (wgmma) instructions, and ptxas reports no
+    spill for any bf16 instantiation."""
+    from repro_torch.kernels import _build
+
+    _build.load("flash_attention")
+    code = _build.sass("flash_attention")
+    if code is None:
+        pytest.skip("needs cuobjdump to read the kernel's SASS")
+    assert "HGMMA" in code
+    bf16 = {fn: r for fn, r in _build.ptxas_report("flash_attention").items()
+            if "flash_attention_bf16_kernel" in fn}
+    assert len(bf16) == len(fa.SUPPORTED_HEAD_DIMS)
+    assert all(r["spill"] == 0 for r in bf16.values()), bf16
+
+
 def test_flash_attention_raises_instead_of_falling_back(cuda):
     q = torch.zeros((1, 4, 2, 48), device=cuda)           # D = 48
     with pytest.raises(ValueError, match="head dim"):
@@ -283,6 +334,11 @@ def test_flash_attention_raises_instead_of_falling_back(cuda):
     q = torch.zeros((1, 4, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="flash_attention takes"):
         fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    flat = torch.zeros(4 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 4, 2, 64)                   # 2 bytes off 16
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.flash_attention(q, q[:, :, :1].contiguous(),
+                           q[:, :, :1].contiguous())
 
 
 def _to(tree, device):
