@@ -19,10 +19,13 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    the batched walk (G > 1) and the per-group walk (G = 1), each with
    check_every in {1, 3}, the cross-group scan, and the per-group scan
    (``probe_fused=False`` with a truncated stream), timed; K4 (linear-scan
-   scores), K5 (block maxima) and K6 (one-query tuples) at n = 2^18,
+   scores, and the fused score-and-top-k at k in {32, 128} and at B = 1,
+   k = 1024, also over a database of five distinct codes), K5 (block
+   maxima) and K6 (one-query tuples) at n = 2^18 (a ragged last tile),
    p in {64, 128}, B = 64 with a zero-norm query and an all-zero code,
    bit for bit; K7 (flash attention) on ``FLASH_CASES`` (G = 1 to 8 and
-   3, ragged tiles, windows, decode rows) in float32 and bf16 against its
+   3, ragged tiles, windows, decode rows, head dims 16 to 256 with 16, 20,
+   48 and 112 between the kernel's widths) in float32 and bf16 against its
    plain version in float32 (float32 within 2e-5, bf16 within
    4e-3 * max(1, |plain|));
 3. the two exact paths at full size: n = 10,000,000 clustered codes
@@ -40,14 +43,20 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       ``chiprun_out/``) and once more with the port's tracer on (host
       time by layer span).
    b. The linear scan, through ``make_engine("linear_scan", ...)`` (the
-      CUDA backend: K4 per 65,536-code chunk, a running top-K, a float64
-      host rerank). Per case: one K4 launch per chunk; the checked rows
-      bit-identical to the float64 scan's sims; every B = 64 row equal to
-      AMIH's but for equal-cosine ties (ROADMAP C-R1).
-      ``ops.scan_topk_pruned`` (K5, then K4 on the surviving blocks) at
-      B in {1, 64}, K = 10 equals ``ops.scan_topk``; ``ops.verify_tuples_op``
+      CUDA backend: one fused K4 score-and-top-k call, a float64 host
+      rerank). Per case: one fused call and no K4 score launch per batch;
+      the checked rows bit-identical to the float64 scan's sims; every
+      B = 64 row equal to AMIH's but for equal-cosine ties (ROADMAP C-R1);
+      at B = 64 one batch allocates at most 1% of the (B, N) float32
+      scores beyond what is resident. ``ops.scan_topk`` at k = 2048, above
+      the fused kernel's cap, takes the chunked route (K4 scores per
+      65,536 codes, a running top-K) and its first 1024 equal the fused
+      kernel's. ``ops.scan_topk_pruned`` (K5, then the fused top-k on the
+      surviving blocks) at B in {1, 64}, K = 10 equals ``ops.scan_topk``;
+      ``ops.verify_tuples_op``
       (K6) on one query against all n codes equals the host's tuples. One
-      batch at p = 128, B = 64 runs under the profiler and the tracer.
+      batch at p = 128, B in {64, 1}, runs under the profiler and the
+      tracer.
    c. Retrieval serving, through ``RetrievalService`` with the gemma-2b
       encoder at full width (``get_config("gemma_2b")``: 18 layers,
       d_model 2048, 8 q heads of 256 over 1 kv head, d_ff 16384, vocab
@@ -76,7 +85,9 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    bound (the bytes it must move at 3.35 TB/s, or its 32-bit integer
    operations and population counts at the card's peak issue rates for
    them, or K7's multiply-adds at the dense bf16 tensor rate, whichever
-   takes longest; see ``op_rates`` and ``flash_bound_ms``); K7 also beside
+   takes longest; see ``op_rates`` and ``flash_bound_ms``); the fused top-k
+   at the main path's B = 64 call and at its first query alone (B = 1); K7
+   also beside
    ``scaled_dot_product_attention`` on the same tensors (its
    ``library_ms``; the port never calls it).
 
@@ -147,7 +158,7 @@ def bound_ms(nbytes, int_ops, popcs):
 class Recorder:
     """Wraps the kernel entry points the launch layer calls (``sites``: the
     walk and scan wrappers of ``kernels.device_probe``, the grouped verify
-    as ``kernels.ops`` calls it, or the linear scan's three kernel wrappers
+    as ``kernels.ops`` calls it, or the linear scan's four kernel wrappers
     as ``kernels.ops`` calls them) to keep the operands of
     the first ``keep`` calls of each — of the grouped verify, its largest
     call — so each kernel can be checked and timed at the shapes the main
@@ -156,7 +167,8 @@ class Recorder:
 
     WALKS = ("device_probe_walk_batched", "device_probe_walk",
              "device_probe_scan_multi", "device_probe_scan")
-    SCANS = ("hamming_scan_scores", "blockmax_scores", "verify_tuples")
+    SCANS = ("hamming_scan_scores", "hamming_scan_topk", "blockmax_scores",
+             "verify_tuples")
 
     def __init__(self, sites, keep: int = 1):
         self.sites = sites          # (module, function name) pairs to wrap
@@ -438,11 +450,13 @@ def scan_bound_ms_pairs(B, N, W, out_elems):
 
 
 def scan_kernels(hs, bm, vt):
-    """name -> (kernel, plain, LAUNCHES dict) of the linear scan's three
+    """name -> (kernel, plain, LAUNCHES dict) of the linear scan's four
     kernel wrappers, keyed as ``Recorder.SCANS`` names them."""
     return {
         "hamming_scan_scores": (hs.hamming_scan_scores,
                                 hs.hamming_scan_scores_plain, hs.LAUNCHES),
+        "hamming_scan_topk": (hs.hamming_scan_topk,
+                              hs.hamming_scan_topk_plain, hs.LAUNCHES),
         "blockmax_scores": (bm.blockmax_scores, bm.blockmax_scores_plain,
                             bm.LAUNCHES),
         "verify_tuples": (vt.verify_tuples, vt.verify_tuples_plain,
@@ -451,10 +465,12 @@ def scan_kernels(hs, bm, vt):
 
 
 def check_scan_call(kernels, name, a, kw, timed=False, reps=20):
-    """K4/K5/K6 on one call's operands against the plain version on the
-    same tensors, bit for bit (float32 scores compared as their bits);
-    with ``timed``, the kernel's CUDA-event time, the plain version's
-    host-clock time around one call, and the bound."""
+    """K4 (scores or the fused top-k), K5 or K6 on one call's operands
+    against the plain version on the same tensors, bit for bit (float32
+    outputs compared as their bits); with ``timed``, the kernel's
+    CUDA-event time, the plain version's host-clock time around one call,
+    and the bound (the fused top-k's outputs are its (B, k) sims and ids,
+    its pairs all B x N)."""
     import torch
 
     kernel, plain, counts = kernels[name]
@@ -469,8 +485,9 @@ def check_scan_call(kernels, name, a, kw, timed=False, reps=20):
     bits = [t.view(torch.int32) if t.dtype == torch.float32 else t
             for t in got + ref]
     max_err(bits[:len(got)], bits[len(got):])     # raises unless equal
-    err = max(float((g.double() - r.double()).abs().max()) if g.numel()
-              else 0.0 for g, r in zip(got, ref))
+    # (equal slots count 0, -inf ones of the top-k included)
+    err = max(float(torch.where(g == r, 0.0, (g.double() - r.double()).abs())
+                    .max()) if g.numel() else 0.0 for g, r in zip(got, ref))
     entry = {"max_abs_err": err}
     if timed:
         entry["ms"] = cuda_ms(lambda: kernel(*a, **kw), reps)
@@ -484,19 +501,24 @@ def check_scan_call(kernels, name, a, kw, timed=False, reps=20):
             entry["bound_ms"], entry["bound_by"] = bound_ms(
                 N * W * 4 + W * 4 + 2 * N * 4, N * 4 * W, N * 2 * W)
         else:
-            q, _, db = a
+            q, _, db = a[:3]
             B, W = q.shape
             entry["bound_ms"], entry["bound_by"] = scan_bound_ms_pairs(
-                B, db.shape[0], W, got[0].numel())
+                B, db.shape[0], W, sum(g.numel() for g in got))
         entry["shape"] = (f"q {tuple(a[0].shape)}, codes "
-                          f"{tuple(a[-1].shape)}")
+                          f"{tuple(a[2 if len(a) > 2 else 1].shape)}")
+        entry["args"] = ", ".join(f"{x}" for x in a[3:]) or "-"
     counts.update(saved)                          # comparisons do not count
     return entry
 
 
 def check_scan_kernels(kernels, ops, torch, dev, p, n=1 << 18, B=64):
-    """Phase 2: K4, K5 and K6 against their plain versions at n codes,
-    with a zero-norm query, an all-zero code and a ragged last block."""
+    """Phase 2: K4 (scores and the fused top-k), K5 and K6 against their
+    plain versions at n codes, with a zero-norm query, an all-zero code and
+    a ragged last block or row tile; the fused top-k also at B = 1 with
+    k = 1024 (its largest), and over a database of five distinct codes
+    (ties across every row tile, staging areas that fill again and
+    again)."""
     from repro_torch.data.synthetic import (
         synthetic_binary_codes_packed,
         synthetic_queries_packed,
@@ -508,12 +530,17 @@ def check_scan_kernels(kernels, ops, torch, dev, p, n=1 << 18, B=64):
     q[1] = 0
     db_t, q_t = ops.to_device(db, dev), ops.to_device(q, dev)
     z = ops.query_popcounts(q_t)
+    dup = db_t[torch.arange(db_t.shape[0], device=dev) % 5].contiguous()
     calls = (("hamming_scan_scores", (q_t, z, db_t), {}),
+             ("hamming_scan_topk", (q_t, z, db_t, 32, None, None), {}),
+             ("hamming_scan_topk", (q_t, z, dup, 128, None, None), {}),
+             ("hamming_scan_topk", (q_t[:1], z[:1], db_t, 1024, None, None),
+              {}),
              ("blockmax_scores", (q_t, z, db_t), {"blk_n": 2048}),
              ("verify_tuples", (q_t[0], db_t), {}))
     for name, a, kw in calls:
         check_scan_call(kernels, name, a, kw)
-    return [name for name, _, _ in calls]
+    return list(dict.fromkeys(name for name, _, _ in calls))
 
 
 def same_but_ties(ids, sims, o_ids, o_sims, atol=1e-12):
@@ -555,9 +582,10 @@ def scan_path(p, db, batch, singles, chk, want_topk, amih_rows, *, dev,
     from repro_torch.core.linear_scan import sims_for_ids
     from repro_torch.core.packing import hamming_tuples
     from repro_torch.kernels import ops
+    from repro_torch.kernels.hamming_scan import KCAP_MAX
     from repro_torch.obs.metrics import REGISTRY
 
-    chunks = -(-N_MAIN // (1 << 16))   # K4 launches per batch
+    chunks = -(-N_MAIN // (1 << 16))   # K4 launches of a chunked top-k
     eng = make_engine("linear_scan", db, p)
 
     def check_exact(ids, sims, k, off):
@@ -575,14 +603,32 @@ def scan_path(p, db, batch, singles, chk, want_topk, amih_rows, *, dev,
     for B in (64, 1):
         for K in (10, 100):
             s0 = REGISTRY.value("launches.scan_scores")
+            f0 = REGISTRY.value("launches.scan_topk")
             ms = []
             if B == 64:
                 eng.knn_batch(batch, K)                      # warm
+                # what one batch allocates beyond what is resident (the
+                # codes, uploaded once, and earlier phases' tensors)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                eng.knn_batch(batch, K)
+                extra = torch.cuda.max_memory_allocated() - base
+                limit = 0.01 * B * N_MAIN * 4
+                if extra > limit:
+                    raise AssertionError(
+                        f"linear scan p={p} B={B} K={K}: a batch allocates "
+                        f"{extra:,} bytes beyond the resident codes, over "
+                        f"1% of the (B, N) scores ({limit:,.0f})")
+                log(f"  linear scan p={p} B={B} K={K}: peak allocation of "
+                    f"one batch {extra:,} bytes beyond the resident codes "
+                    f"({N_MAIN * db.shape[1] * 4:,} bytes), limit "
+                    f"{limit:,.0f} (1% of the (B, N) float32 scores)")
                 for _ in range(5):
                     t0 = time.perf_counter()
                     ids, sims, _ = eng.knn_batch(batch, K)
                     ms.append((time.perf_counter() - t0) * 1e3 / B)
-                n_batches = 6
+                n_batches = 7
                 check_exact(ids, sims, K, 0)
                 a_ids, a_sims = amih_rows[K]
                 exact = same_but_ties(ids, sims, a_ids, a_sims)
@@ -600,18 +646,39 @@ def scan_path(p, db, batch, singles, chk, want_topk, amih_rows, *, dev,
                 check_exact(np.stack([r[0][0] for r in res]),
                             np.stack([r[1][0] for r in res]), K, K_CHECK)
                 vs_amih = ""
-            per = (REGISTRY.value("launches.scan_scores") - s0) / n_batches
-            if per != chunks:
+            per = (REGISTRY.value("launches.scan_topk") - f0) / n_batches
+            scores = REGISTRY.value("launches.scan_scores") - s0
+            if per != 1 or scores:
                 raise AssertionError(f"linear scan p={p} B={B} K={K}: "
-                                     f"{per} K4 launches per batch, "
-                                     f"expected {chunks}")
+                                     f"{per} fused top-k calls and "
+                                     f"{scores / n_batches} K4 score launches "
+                                     f"per batch, expected 1 and 0")
             med = statistics.median(ms)
             timings.append((p, B, K, med))
             log(f"  linear scan p={p} B={B} K={K}: {med:.4f} ms/query "
-                f"(median of 5 warm batches) {tag}; {per:.0f} K4 "
-                f"launches/batch; exact vs the float64 scan{vs_amih}")
+                f"(median of 5 warm batches) {tag}; 1 fused top-k call and "
+                f"0 K4 score launches per batch; exact vs the float64 "
+                f"scan{vs_amih}")
     db_t = ops.to_device(db, dev)
     q_t = ops.to_device(batch, dev)
+    # a top-k above the fused kernel's cap takes the chunked route (K4
+    # scores per 65,536 codes and the running top-K); its first 1024 equal
+    # the fused kernel's top 1024
+    s0 = REGISTRY.value("launches.scan_scores")
+    f0 = REGISTRY.value("launches.scan_topk")
+    c_sims, c_ids = ops.scan_topk(q_t, db_t, 2 * KCAP_MAX)
+    if (REGISTRY.value("launches.scan_scores") - s0 != chunks
+            or REGISTRY.value("launches.scan_topk") != f0):
+        raise AssertionError(f"p={p}: k = {2 * KCAP_MAX} did not take the "
+                             f"chunked route ({chunks} K4 launches)")
+    f_sims, f_ids = ops.scan_topk(q_t, db_t, KCAP_MAX)
+    if not (torch.equal(c_sims[:, :KCAP_MAX], f_sims)
+            and torch.equal(c_ids[:, :KCAP_MAX], f_ids)):
+        raise AssertionError(f"p={p}: the chunked route's top {KCAP_MAX} "
+                             "differs from the fused kernel's")
+    log(f"  scan_topk p={p} B=64 k={2 * KCAP_MAX}: chunked route, {chunks} "
+        f"K4 launches; its top {KCAP_MAX} equal to the fused kernel's")
+    del c_sims, c_ids
     for B in (64, 1):
         f_sims, f_ids = ops.scan_topk(q_t[:B], db_t, 10)
         p_sims, p_ids, frac = ops.scan_topk_pruned(q_t[:B], db_t, 10)
@@ -633,6 +700,10 @@ def scan_path(p, db, batch, singles, chk, want_topk, amih_rows, *, dev,
                       "scan_p128_B64_K10", ROOT / "chiprun_out")
         span_breakdown(lambda: eng.knn_batch(batch, 10),
                        "scan_p128_B64_K10")
+        profile_batch(lambda: eng.knn_batch(singles[1:2], 10),
+                      "scan_p128_B1_K10", ROOT / "chiprun_out")
+        span_breakdown(lambda: eng.knn_batch(singles[1:2], 10),
+                       "scan_p128_B1_K10")
 
 
 # ------------------------------------------------------------------- K7
@@ -643,8 +714,10 @@ FP32_FLOPS = 67e12
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, window, valid_len): MHA, GQA and MQA,
 # causal or not, windows 8, 16, 24 and 64, valid_len in {0, 1, 37, 100,
-# 160}, ragged Sq and Sk (100, 130, 160), D in {32, 64, 128, 256}, G in
-# {1, 2, 3, 4, 8} (G = 3: 64-row tiles that straddle a head group)
+# 160}, ragged Sq and Sk (100, 130, 160), D in {32, 64, 128, 256} and
+# between them (the reference configs' tiny 16, 48, kimi-k2's 112, and 20,
+# which the bf16 path pads to 24 for TMA), G in {1, 2, 3, 4, 8} (G = 3:
+# 64-row tiles that straddle a head group)
 FLASH_CASES = [
     (2, 128, 128, 8, 8, 64, True, 0, None),
     (2, 128, 128, 8, 2, 128, False, 0, None),
@@ -661,6 +734,11 @@ FLASH_CASES = [
     (1, 130, 160, 4, 1, 128, True, 8, None),
     (1, 100, 130, 8, 1, 256, False, 24, None),
     (1, 37, 50, 6, 2, 32, True, 0, None),
+    (2, 128, 128, 8, 2, 16, True, 0, None),
+    (1, 130, 160, 4, 1, 48, False, 24, None),
+    (2, 128, 128, 8, 1, 112, True, 0, None),
+    (2, 1, 160, 8, 2, 112, False, 0, 37),
+    (1, 100, 100, 4, 2, 20, True, 16, None),
 ]
 
 
@@ -1109,8 +1187,8 @@ def main() -> int:
     worst = check_flash_cases(fa, torch, dev)
     log(f"  K7 flash_attention, {len(FLASH_CASES)} cases x float32/bf16 "
         f"(MHA, GQA, MQA, G = 3; causal or not; windows 8, 16, 24, 64; "
-        f"valid_len 0, 1, 37, 100, 160; Sq, Sk 100, 130, 160; D 32, 64, 128, "
-        f"256) against the plain version in "
+        f"valid_len 0, 1, 37, 100, 160; Sq, Sk 100, 130, 160; D 16, 20, 32, "
+        f"48, 64, 112, 128, 256) against the plain version in "
         f"float32: within tolerance (float32 2e-5, bf16 "
         f"4e-3 * max(1, |plain|)), largest differences {worst}")
     torch.cuda.synchronize()
@@ -1309,6 +1387,7 @@ def main() -> int:
                 "probe_walk": amih_counts["probe_walk"],
                 "probe_scan": amih_counts["probe_scan"],
                 "hamming_scan": scan_counts["hamming_scan"],
+                "hamming_scan_topk": scan_counts["hamming_scan_topk"],
                 "blockmax_scan": scan_counts["blockmax_scan"],
                 "verify_tuples": scan_counts["verify_tuples"],
                 "flash_attention": retrieval["launches"]}
@@ -1358,11 +1437,19 @@ def main() -> int:
                 raise AssertionError(f"the linear-scan path at p={p} never "
                                      f"called {name}")
             (a, kw), = calls
-            e = check_scan_call(kernels46, name, a, kw, timed=True)
-            scan_meas[p, name] = e
-            log(f"  {name} p={p} ({e['shape']}): kernel {e['ms']:.4f} ms, "
-                f"plain {e['plain_ms']:.2f} ms, bound {e['bound_ms']:.4f} ms "
-                f"({e['bound_by']}), equal bit for bit {tag}")
+            shapes = [(name, a)]
+            if name == "hamming_scan_topk":
+                # the same call for the first query alone: B = 1
+                shapes.append((name + "_b1",
+                               (a[0][:1].contiguous(), a[1][:1].contiguous())
+                               + tuple(a[2:])))
+            for key, aa in shapes:
+                e = check_scan_call(kernels46, name, aa, kw, timed=True)
+                scan_meas[p, key] = e
+                log(f"  {name} p={p} ({e['shape']}, {e['args']}): kernel "
+                    f"{e['ms']:.4f} ms, plain {e['plain_ms']:.2f} ms, bound "
+                    f"{e['bound_ms']:.4f} ms ({e['bound_by']}), equal bit for "
+                    f"bit {tag}")
 
     k7 = check_flash_call(fa, *k7_call)
     log(f"  flash_attention ({k7['shape']}): kernel {k7['ms']:.4f} ms, "
@@ -1397,6 +1484,10 @@ def main() -> int:
         ("hamming_scan", "src/repro_torch/kernels/csrc/hamming_scan.cu",
          "src/repro/kernels/hamming_scan.py:62", launches["hamming_scan"],
          scan_meas[128, "hamming_scan_scores"]),
+        ("hamming_scan_topk", "src/repro_torch/kernels/csrc/hamming_scan.cu",
+         "src/repro/kernels/hamming_scan.py:62 with the chunk loop of "
+         "src/repro/kernels/ops.py:173", launches["hamming_scan_topk"],
+         scan_meas[128, "hamming_scan_topk"]),
         ("blockmax_scan", "src/repro_torch/kernels/csrc/blockmax_scan.cu",
          "src/repro/kernels/blockmax_scan.py:53", launches["blockmax_scan"],
          scan_meas[128, "blockmax_scores"]),

@@ -230,9 +230,9 @@ class LinearScanEngine(SearchEngine):
 
     ``compute_backend`` selects the scoring path:
 
-      - "cuda"  — the streaming device top-K ``kernels.ops.scan_topk`` (the
-        K4 kernel, or its plain version on ``device="cpu"``) over a copy of
-        the codes on ``device``, uploaded once. The device preselects
+      - "cuda"  — the device top-K ``kernels.ops.scan_topk`` (the fused
+        K4 top-k kernel, or its plain version on ``device="cpu"``) over a
+        copy of the codes on ``device``, uploaded once. The device preselects
         ``k + slack`` candidates in float32; their sims are recomputed on
         the host in float64 (``sims_for_ids``) and re-ranked, so the
         returned (ids, sims) equal ``linear_scan_knn``'s bit for bit. The
@@ -321,21 +321,19 @@ class LinearScanEngine(SearchEngine):
         return ids_out, sims_out
 
     def _knn_batch_device(self, q, k_eff):
-        """Device streaming top-K preselect + exact float64 host rerank.
-        The fetch size and the batch are padded to power-of-two buckets as
-        in the reference (zero query rows score 0.0 and are sliced off)."""
+        """Device top-K preselect (one fused K4 call) + exact float64 host
+        rerank. The fetch size is padded to a power-of-two bucket as in the
+        reference; the batch is not (the reference pads it with zero rows
+        for its trace cache, and no row's result depends on another's)."""
         if self._db_dev is None:
             self._db_dev = ops.to_device(self.db_words, self.device)
         B = q.shape[0]
         k_fetch = min(
             self.n, ops.pad_bucket(k_eff + self._topk_slack, minimum=8)
         )
-        Bp = ops.pad_bucket(B, minimum=8)
-        qp = np.zeros((Bp, q.shape[1]), dtype=q.dtype)
-        qp[:B] = q
-        _, ids32 = ops.scan_topk(ops.to_device(qp, self.device),
+        _, ids32 = ops.scan_topk(ops.to_device(q, self.device),
                                  self._db_dev, k_fetch)
-        fetched = ids32[:B].cpu().numpy().astype(np.int64)   # (B, k_fetch)
+        fetched = ids32.cpu().numpy().astype(np.int64)       # (B, k_fetch)
         ids_out = np.empty((B, k_eff), dtype=np.int64)
         sims_out = np.empty((B, k_eff), dtype=np.float64)
         for i in range(B):

@@ -47,12 +47,14 @@ NVCC_FLAGS = (
 )
 
 _P = ctypes.c_void_p
-# C entry point, argtypes per library
+# C entry point and argtypes, per kernel (hamming_scan_topk lives in the
+# hamming_scan library)
 _ENTRY = {
     "verify_grouped": ("verify_grouped_launch", [_P, _P, _P]),
     "probe_scan": ("probe_scan_launch", [_P, _P, _P]),
     "probe_walk": ("probe_walk_launch", [_P, _P, _P, _P]),
     "hamming_scan": ("hamming_scan_launch", [_P, _P, _P]),
+    "hamming_scan_topk": ("hamming_scan_topk_launch", [_P, _P, _P]),
     "blockmax_scan": ("blockmax_scan_launch", [_P, _P, _P]),
     "verify_tuples": ("verify_tuples_launch", [_P, _P, _P]),
     "flash_attention": ("flash_attention_launch", [_P, _P, _P]),

@@ -9,9 +9,22 @@
 //   r10 = sum_w popc(q_w & ~c_w)   (bits 1 in q, 0 in c)
 //   r01 = sum_w popc(~q_w & c_w)   (bits 0 in q, 1 in c)
 //   key = r10 * (p + 1) + r01      (p + 1 > any r01, so the key is exact)
+// The scan kernels count the same tuple with W population counts per pair
+// instead of 2W: a = sum_w popc(q_w & c_w) (bits the two share) per pair
+// and y = sum_w popc(c_w) per code, shared by every query, give
+//   r10 = z - a,  r01 = y - a  (z: the query's popcount).
 #pragma once
 
 #include <cuda_runtime.h>
+
+// A kernel's dynamic shared memory as `unsigned char* name` (the
+// emulation of tests/cuda_emu/ gives each block its own buffer).
+#ifdef __CUDACC__
+#define DYNAMIC_SMEM(name) \
+  extern __shared__ __align__(16) unsigned char name[]
+#else
+#define DYNAMIC_SMEM(name) unsigned char* name = emu_block->dyn
+#endif
 
 // "Never probed" marker of a position map (int32 max).
 #define POS_INF 0x7FFFFFFF
@@ -48,6 +61,28 @@ __device__ __forceinline__ void tuple_counts_regs(const int* __restrict__ q,
       r01 += __popc(~qw & cw);
     }
   }
+}
+
+// Bits shared by a query and a code in registers: a = sum_w popc(q_w & c_w).
+__device__ __forceinline__ int shared_bits_regs(const int* __restrict__ q,
+                                                const int (&c)[MAX_WORDS],
+                                                int W) {
+  int a = 0;
+#pragma unroll
+  for (int w = 0; w < MAX_WORDS; ++w)
+    if (w < W)
+      a += __popc(static_cast<unsigned>(q[w]) & static_cast<unsigned>(c[w]));
+  return a;
+}
+
+// Set bits of a code in registers: y = sum_w popc(c_w).
+__device__ __forceinline__ int code_bits_regs(const int (&c)[MAX_WORDS],
+                                              int W) {
+  int y = 0;
+#pragma unroll
+  for (int w = 0; w < MAX_WORDS; ++w)
+    if (w < W) y += __popc(static_cast<unsigned>(c[w]));
+  return y;
 }
 
 // The packed key with the code already in registers.

@@ -57,14 +57,20 @@
 //     even), stages the tile in Q's shared memory in the layout a TMA load
 //     gives, and one TMA store per 64 columns writes it (rows past Sq are
 //     out of bounds and not written).
-//   * D = 32 runs as D = 64 with zero columns (the tiles' rows are 64 bf16
-//     wide). Dynamic shared memory, with DP = max(D, 64) (FlashPlan): Q
-//     128 DP bytes, STAGES stages of K and V 256 DP each (one stage at
-//     D = 256, two below), P_hi and P_lo 16 KiB outside K only at D <= 64,
-//     the mbarriers and 1 KiB to align the tiles: D = 32 and 64: 58,408
-//     bytes; 128: 82,984; 256: 99,352.
+//   * Any head dim D <= 256 runs on the smallest instantiation (32, 64,
+//     128, 256) at least as wide, with zero columns past D: the maps take
+//     the true D, the scale is D^-0.5 of the true D, and the columns past
+//     it are neither read nor stored. D = 32 runs as D = 64 (the tiles'
+//     rows are 64 bf16 wide). A D that is not a multiple of 8 comes padded
+//     from the wrapper (TMA's row strides must be multiples of 16 bytes).
+//   * Dynamic shared memory, with DP = max(D, 64) (FlashPlan): Q 128 DP
+//     bytes, STAGES stages of K and V 256 DP each (one stage at D = 256,
+//     two below), P_hi and P_lo 16 KiB outside K only at D <= 64, the
+//     mbarriers and 1 KiB to align the tiles: D = 32 and 64: 58,408 bytes;
+//     128: 82,984; 256: 99,352.
 //
-// float32 (flash_attention_kernel, unchanged from the first port): one
+// float32 (flash_attention_kernel, as in the first port but for guarded
+// loads and stores past a head dim below the tile's width): one
 // block of FA_THREADS threads per (b, h, tile of QT query rows); a loop
 // over kv tiles of KT keys stages k and v in shared memory as float32,
 // computes the QT x KT scores as dot products, each query row's TPR
@@ -76,6 +82,8 @@
 
 #include <cuda_bf16.h>
 
+#include <cmath>
+
 #define FA_THREADS 128
 #define FA_NEG_INF (-1e30f)
 
@@ -85,11 +93,16 @@ struct FlashArgs {
   const void* v;  // (B, Sk, Hkv, D)
   void* out;      // (B, Sq, Hq, D), q's type
   int B, Sq, Sk, Hq, Hkv;
+  int D;          // row width in memory, <= the instantiation's width
   int causal, window, valid_len;  // valid_len < 0: no valid_len
+  float scale;    // head_dim^-0.5 (the true head dim, not the padded one)
+  float scale2;   // scale * log2(e)
 };
 
 // Query rows (QT) and keys (KT) per tile: the float32 tiles of q, k, v and
 // the scores stay under the 48 KB of static shared memory a block may use.
+// A head dim D routes to the smallest width here that is >= D; the
+// columns past D are zeros in shared memory and are never stored.
 template <int D> struct FlashTile;
 template <> struct FlashTile<32> { static constexpr int QT = 16, KT = 32; };
 template <> struct FlashTile<64> { static constexpr int QT = 16, KT = 32; };
@@ -134,6 +147,7 @@ __device__ __forceinline__ bool fa_tile_live(const FlashArgs& a, int q_first,
 template <typename T, int D>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const FlashArgs a) {
+  // D: the tile width; a.D <= D: the row width of q, k, v and out
   constexpr int QT = FlashTile<D>::QT;
   constexpr int KT = FlashTile<D>::KT;
   constexpr int TPR = FA_THREADS / QT;  // threads per query row
@@ -157,14 +171,15 @@ flash_attention_kernel(const FlashArgs a) {
   const int h = bh % a.Hq;
   const int b = bh / a.Hq;
   const int hk = h / (a.Hq / a.Hkv);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
+  const float scale = a.scale;
+  const int Dm = a.D;
 
   for (int e = t; e < QT * D; e += FA_THREADS) {
     const int r = e / D, d = e % D;
     const int s = q0 + r;
-    qs[r][d] = s < a.Sq
-        ? fa_load(q, (static_cast<long long>(b) * a.Sq + s) * a.Hq * D +
-                         static_cast<long long>(h) * D + d)
+    qs[r][d] = s < a.Sq && d < Dm
+        ? fa_load(q, (static_cast<long long>(b) * a.Sq + s) * a.Hq * Dm +
+                         static_cast<long long>(h) * Dm + d)
         : 0.0f;
   }
 
@@ -186,10 +201,10 @@ flash_attention_kernel(const FlashArgs a) {
       const int j = e / D, d = e % D;
       const int s = k0 + j;
       float kx = 0.0f, vx = 0.0f;  // zeros past Sk: p = 0 meets no NaN
-      if (s < a.Sk) {
+      if (s < a.Sk && d < Dm) {
         const long long off =
-            (static_cast<long long>(b) * a.Sk + s) * a.Hkv * D +
-            static_cast<long long>(hk) * D + d;
+            (static_cast<long long>(b) * a.Sk + s) * a.Hkv * Dm +
+            static_cast<long long>(hk) * Dm + d;
         kx = fa_load(k, off);
         vx = fa_load(v, off);
       }
@@ -247,11 +262,11 @@ flash_attention_kernel(const FlashArgs a) {
   if (s < a.Sq) {
     const float lm = fmaxf(l, 1e-30f);
     const long long base =
-        (static_cast<long long>(b) * a.Sq + s) * a.Hq * D +
-        static_cast<long long>(h) * D;
+        (static_cast<long long>(b) * a.Sq + s) * a.Hq * Dm +
+        static_cast<long long>(h) * Dm;
 #pragma unroll
-    for (int i = 0; i < ACC; ++i) fa_store(out, base + c + TPR * i,
-                                           acc[i] / lm);
+    for (int i = 0; i < ACC; ++i)
+      if (c + TPR * i < Dm) fa_store(out, base + c + TPR * i, acc[i] / lm);
   }
 }
 
@@ -392,8 +407,7 @@ flash_attention_bf16_kernel(const __grid_constant__ FlashTmaArgs p) {
     if (a.causal) k_hi[h] = min(k_hi[h], qp + 1);
   }
   // scores in log2 units: exp(x * scale) = exp2(x * scale * log2(e))
-  const float scale2 = static_cast<float>(1.4426950408889634 /
-                                          sqrt(static_cast<double>(D)));
+  const float scale2 = a.scale2;
   const uint32_t sq = sm90_smem_addr(smem + Plan::Q);
 
   float o[NDB][32];
@@ -548,11 +562,13 @@ static int flash_launch_f32(FlashArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Tensor maps of the bf16 kernel. q and out as (D, G, Hkv, Sq, B) with a
-// box of (64, G, 1, P, 1): a tile of P positions x G heads, the rows
-// r = s * G + g in order; k and v as (D, Hkv, Sk, B, 1) with a box of
-// (64, 1, 64, 1, 1). Columns past D (D = 32) and positions past Sq or Sk
-// are zeros when loaded and never stored.
+// Tensor maps of the bf16 kernel, over the row width a.D (TMA needs every
+// row stride, a.D * 2 bytes, to be a multiple of 16: the wrapper pads a
+// width that is not a multiple of 8). q and out as (a.D, G, Hkv, Sq, B)
+// with a box of (64, G, 1, P, 1): a tile of P positions x G heads, the rows
+// r = s * G + g in order; k and v as (a.D, Hkv, Sk, B, 1) with a box of
+// (64, 1, 64, 1, 1). Columns past a.D (up to the instantiation's D) and
+// positions past Sq or Sk are zeros when loaded and never stored.
 template <int D>
 static int flash_launch_bf16(FlashArgs& a, cudaStream_t stream) {
   const int G = a.Hq / a.Hkv;
@@ -561,20 +577,21 @@ static int flash_launch_bf16(FlashArgs& a, cudaStream_t stream) {
   p.a = a;
   p.P = FA_ROWS / G;
   const uint64_t e = 2;  // bytes of a bf16
-  const uint64_t q_dims[5] = {D, static_cast<uint64_t>(G),
+  const uint64_t Dm = static_cast<uint64_t>(a.D);
+  const uint64_t q_dims[5] = {Dm, static_cast<uint64_t>(G),
                               static_cast<uint64_t>(a.Hkv),
                               static_cast<uint64_t>(a.Sq),
                               static_cast<uint64_t>(a.B)};
-  const uint64_t q_strides[4] = {D * e, G * D * e, a.Hq * D * e,
-                                 static_cast<uint64_t>(a.Sq) * a.Hq * D * e};
+  const uint64_t q_strides[4] = {Dm * e, G * Dm * e, a.Hq * Dm * e,
+                                 static_cast<uint64_t>(a.Sq) * a.Hq * Dm * e};
   const uint32_t q_box[5] = {64, static_cast<uint32_t>(G), 1,
                              static_cast<uint32_t>(p.P), 1};
-  const uint64_t kv_dims[5] = {D, static_cast<uint64_t>(a.Hkv),
+  const uint64_t kv_dims[5] = {Dm, static_cast<uint64_t>(a.Hkv),
                                static_cast<uint64_t>(a.Sk),
                                static_cast<uint64_t>(a.B), 1};
   const uint64_t kv_strides[4] = {
-      D * e, a.Hkv * D * e, static_cast<uint64_t>(a.Sk) * a.Hkv * D * e,
-      static_cast<uint64_t>(a.B) * a.Sk * a.Hkv * D * e};
+      Dm * e, a.Hkv * Dm * e, static_cast<uint64_t>(a.Sk) * a.Hkv * Dm * e,
+      static_cast<uint64_t>(a.B) * a.Sk * a.Hkv * Dm * e};
   const uint32_t kv_box[5] = {64, 1, FA_KT, 1, 1};
   if (a.Sk > 0) {
     int r = sm90_map_bf16(&p.k, a.k, kv_dims, kv_strides, kv_box);
@@ -600,23 +617,25 @@ static int flash_launch_bf16(FlashArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-static int flash_dispatch(FlashArgs& a, int D, int bf16, cudaStream_t st) {
-  switch (D) {
-    case 32: return bf16 ? flash_launch_bf16<32>(a, st)
-                         : flash_launch_f32<32>(a, st);
-    case 64: return bf16 ? flash_launch_bf16<64>(a, st)
-                         : flash_launch_f32<64>(a, st);
-    case 128: return bf16 ? flash_launch_bf16<128>(a, st)
-                          : flash_launch_f32<128>(a, st);
-    case 256: return bf16 ? flash_launch_bf16<256>(a, st)
-                          : flash_launch_f32<256>(a, st);
-    default: return 1;
-  }
+// Route the row width a.D to the smallest instantiation that holds it.
+static int flash_dispatch(FlashArgs& a, int bf16, cudaStream_t st) {
+  if (a.D < 1) return 1;
+  if (a.D <= 32) return bf16 ? flash_launch_bf16<32>(a, st)
+                             : flash_launch_f32<32>(a, st);
+  if (a.D <= 64) return bf16 ? flash_launch_bf16<64>(a, st)
+                             : flash_launch_f32<64>(a, st);
+  if (a.D <= 128) return bf16 ? flash_launch_bf16<128>(a, st)
+                              : flash_launch_f32<128>(a, st);
+  if (a.D <= 256) return bf16 ? flash_launch_bf16<256>(a, st)
+                              : flash_launch_f32<256>(a, st);
+  return 1;  // cudaErrorInvalidValue
 }
 
 // ptr: q, k, v, out (device addresses; bf16 ones 16-byte aligned);
-// sc: B, Sq, Sk, Hq, Hkv, D, bf16 (0: float32, 1: bf16), causal, window,
-//     valid_len (< 0: none).
+// sc: B, Sq, Sk, Hq, Hkv, D (the row width, <= 256; bf16: a multiple of
+//     8), bf16 (0: float32, 1: bf16), causal, window, valid_len (< 0:
+//     none), head_dim (<= D: the scale is head_dim^-0.5; the columns past
+//     it are zeros).
 // Returns the CUDA error code of the launch (0: launched).
 extern "C" int flash_attention_launch(const long long* ptr, const int* sc,
                                       void* stream) {
@@ -630,16 +649,23 @@ extern "C" int flash_attention_launch(const long long* ptr, const int* sc,
   a.Sk = sc[2];
   a.Hq = sc[3];
   a.Hkv = sc[4];
-  const int D = sc[5];
+  a.D = sc[5];
   const int bf16 = sc[6];
   a.causal = sc[7];
   a.window = sc[8];
   a.valid_len = sc[9];
+  const int head_dim = sc[10];
+  a.scale =
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(head_dim)));
+  a.scale2 = static_cast<float>(1.4426950408889634 /
+                                std::sqrt(static_cast<double>(head_dim)));
   if (a.B == 0 || a.Sq == 0 || a.Hq == 0) return 0;
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0) return 1;
+  if (head_dim < 1 || head_dim > a.D) return 1;
   if (bf16) {
+    if (a.D % 8) return 1;  // TMA's 16-byte row strides
     for (int i = 0; i < 4; ++i)
       if (ptr[i] & 15) return 716;  // cudaErrorMisalignedAddress
   }
-  return flash_dispatch(a, D, bf16, static_cast<cudaStream_t>(stream));
+  return flash_dispatch(a, bf16, static_cast<cudaStream_t>(stream));
 }

@@ -22,8 +22,8 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "NEG_INF", "SUPPORTED_HEAD_DIMS", "flash_attention",
-           "flash_attention_plain"]
+__all__ = ["LAUNCHES", "MAX_HEAD_DIM", "NEG_INF", "SUPPORTED_HEAD_DIMS",
+           "flash_attention", "flash_attention_plain"]
 
 # kernel launches so far (bumped where the kernel is launched, nowhere else)
 LAUNCHES = {"flash_attention": 0}
@@ -32,8 +32,10 @@ NEG_INF = -1e30
 # the reference kernel's kv tile (``DEFAULT_KV_BLK``): the plain version
 # accumulates over kv tiles of this many keys, as the Pallas kernel does
 KV_BLK = 1024
-# gemma-2b's 256, the tiny gemma's 32, and the widths between
+# the kernel's instantiation widths: a head dim D runs on the smallest one
+# >= D, with zero columns past D (routing only; every 1 <= D <= 256 runs)
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -106,8 +108,9 @@ def _launch(lib, q, k, v, out, causal: bool, window: int, valid_len,
             stream: int) -> None:
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {SUPPORTED_HEAD_DIMS}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D}: the kernel takes 1 <= D <= "
+                         f"{MAX_HEAD_DIM}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes {_DTYPES}, got {q.dtype}")
     dev = q.device
@@ -115,11 +118,32 @@ def _launch(lib, q, k, v, out, causal: bool, window: int, valid_len,
         if Hq // Hkv > 64:
             raise ValueError(f"{Hq // Hkv} query heads per kv head: the bf16 "
                              "kernel packs at most 64 into a tile")
+        if D % 8:
+            # TMA's row strides must be multiples of 16 bytes: run on copies
+            # zero-padded to a multiple of 8 columns, with the scale of D
+            Dp = -(-D // 8) * 8
+            qp, kp, vp = (torch.nn.functional.pad(t, (0, Dp - D))
+                          for t in (q, k, v))
+            outp = torch.empty_like(qp)
+            _launch_rows(lib, qp, kp, vp, outp, D, causal, window, valid_len,
+                         stream)
+            out.copy_(outp[..., :D])
+            return
         for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
             if t.data_ptr() % 16:
                 raise ValueError(f"{name}: bf16 operands must start on a "
                                  "16-byte boundary (the kernel's TMA "
                                  "copies need it)")
+    _launch_rows(lib, q, k, v, out, D, causal, window, valid_len, stream)
+
+
+def _launch_rows(lib, q, k, v, out, head_dim: int, causal: bool, window: int,
+                 valid_len, stream: int) -> None:
+    """Launch on rows of width q.shape[-1] >= ``head_dim`` (the columns past
+    it zeros), with the scale of ``head_dim``."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    dev = q.device
     ptrs = [
         _build.require(q, "q", None, dev, q.dtype),
         _build.require(k, "k", None, dev, q.dtype),
@@ -129,7 +153,7 @@ def _launch(lib, q, k, v, out, causal: bool, window: int, valid_len,
     vl = -1 if valid_len is None else max(0, int(valid_len))
     _build.call(lib, "flash_attention", ptrs,
                 [B, Sq, Sk, Hq, Hkv, D, int(q.dtype == torch.bfloat16),
-                 int(bool(causal)), int(window), vl], stream)
+                 int(bool(causal)), int(window), vl, head_dim], stream)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -6,16 +6,16 @@ same site as the reference: ``verify_grouped`` (the host walk's grouped
 verify), ``device_probe`` (one probing walk), ``device_probe_scan`` (one
 exhaustive fallback scan) and ``verify`` (``verify_tuples_op``), plus
 ``launches.device.<device>``; the linear scan's kernels, which the
-reference does not count, bump ``scan_scores`` (one K4 launch per scored
-chunk) and ``blockmax`` (one K5 launch). Launch sites record ``launch.*``
-spans when tracing is on.
+reference does not count, bump ``scan_topk`` (one fused K4 top-k call),
+``scan_scores`` (one K4 score launch: ``scan_scores``, or one chunk of a
+top-k above the fused kernel's k) and ``blockmax`` (one K5 launch).
+Launch sites record ``launch.*`` spans when tracing is on.
 
 The linear scan (``scan_scores``, ``scan_topk``, ``merge_topk``,
 ``scan_topk_pruned``) takes int32 code tensors and runs where they lie:
 the kernels on a CUDA tensor, their plain versions on a CPU tensor. Its
-running top-K is torch ops, ordered as ``jax.lax.top_k`` orders: score
-descending, ties to the lowest position, which the chunk loop keeps equal
-to the lowest id.
+top-K is ordered as ``jax.lax.top_k`` orders the reference's chunk loop:
+score descending, ties to the lowest id.
 
 Shapes keep the reference's power-of-two padding (``pad_bucket``) even
 though eager PyTorch has no trace cache to bound: the walk's iteration
@@ -38,7 +38,13 @@ from ..obs.metrics import REGISTRY as _REG
 from . import device_probe
 from .blockmax_scan import DEFAULT_BLK_N as BLOCKMAX_BLK_N
 from .blockmax_scan import blockmax_scores
-from .hamming_scan import hamming_scan_scores
+from .hamming_scan import (
+    KCAP_MAX,
+    chunked_topk,
+    hamming_scan_scores,
+    hamming_scan_topk,
+    topk_first,
+)
 from .ref import popcount32
 from .verify_tuples import gather_verify_grouped, verify_tuples
 
@@ -424,58 +430,36 @@ def scan_scores(q_words: torch.Tensor, db_words: torch.Tensor):
     return _scores(q_words, query_popcounts(q_words), db_words)
 
 
-def _topk_first(vals: torch.Tensor, k: int):
-    """``jax.lax.top_k`` of float32 rows: the k largest values, ties to
-    the lowest position. ``torch.topk`` promises no order among ties, so
-    it ranks an int64 key: the value's order-preserving int32 image in the
-    high half, the complemented position in the low half. Returns
-    (values, positions)."""
-    bits = vals.contiguous().view(torch.int32)
-    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
-    pos = torch.arange(vals.shape[1], dtype=torch.int64, device=vals.device)
-    key = order * (1 << 32) + ((1 << 32) - 1 - pos)
-    sel = torch.topk(key, k, dim=1).indices
-    return torch.gather(vals, 1, sel), sel
-
-
 def _stream_topk(q_words, z_q, db_words, k: int, chunk: int, n_valid=None,
                  row_ids=None):
-    """Running top-k over ``db_words`` in chunks of ``chunk`` rows:
-    (B, k) float32 sims and int32 ids, -inf and -1 in slots no valid row
-    fills. A row's id is its index, or ``row_ids[index]`` where given
-    (ascending); rows whose id is ``>= n_valid`` score -inf. Each step
-    ranks [best so far, chunk] and every id in the chunk exceeds every id
-    kept, so ties go to the lowest id, as in the reference."""
-    B = q_words.shape[0]
-    N = db_words.shape[0]
+    """The exact top-k of the scan (``hamming_scan_topk``'s contract): one
+    fused K4 launch, counted under ``scan_topk`` (its plain version on the
+    CPU). On the card a k above the fused kernel's ``KCAP_MAX`` takes the
+    chunked route instead, chosen by shape: one K4 score launch per
+    ``chunk`` rows (each counted under ``scan_scores``) and the running
+    top-K in torch ops."""
     dev = q_words.device
-    best_sims = torch.full((B, k), float("-inf"), dtype=torch.float32,
-                           device=dev)
-    best_ids = torch.full((B, k), -1, dtype=torch.int32, device=dev)
-    for lo in range(0, N, chunk):
-        hi = min(lo + chunk, N)
-        sims = _scores(q_words, z_q, db_words[lo:hi])
-        if row_ids is None:
-            ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
-        else:
-            ids = row_ids[lo:hi]
-        if n_valid is not None:
-            sims = torch.where(ids[None, :] < n_valid, sims, float("-inf"))
-        all_sims = torch.cat([best_sims, sims], dim=1)
-        all_ids = torch.cat([best_ids, ids[None, :].expand(B, -1)], dim=1)
-        best_sims, pos = _topk_first(all_sims, k)
-        best_ids = torch.gather(all_ids, 1, pos)
-    return best_sims, best_ids
+    if dev.type == "cuda" and k > KCAP_MAX:
+        return chunked_topk(_scores, q_words, z_q, db_words, k, chunk,
+                            n_valid, row_ids)
+    dkey = device_key(dev)
+    _bump_launch("scan_topk", dkey)
+    with _obs.current().span("launch.scan_topk", cat="kernel", device=dkey,
+                             B=q_words.shape[0], n=db_words.shape[0], k=k):
+        return hamming_scan_topk(q_words, z_q, db_words, k, n_valid,
+                                 row_ids, chunk=chunk)
 
 
 def scan_topk(q_words: torch.Tensor, db_words: torch.Tensor, k: int, *,
               chunk: int = 1 << 16, n_valid=None):
     """Streaming exact angular top-K: (B, W) x (N, W) int32 -> sims
     (B, k') float32 and ids (B, k') int32, k' = min(k, N), by descending
-    score, ties to the lowest id. The codes are scored in chunks of
-    ``chunk`` rows (one K4 launch each) with a running top-K merge, so the
-    (B, N) scores never exist at once. ``n_valid`` (an int or a 0-d
-    tensor) masks rows ``>= n_valid`` to -inf: their slots keep id -1."""
+    score, ties to the lowest id. On the card one fused K4 call scores
+    every code and keeps the top-K on chip, so the (B, N) scores never
+    exist; the plain version on the CPU, and a k above ``KCAP_MAX`` on the
+    card, score ``chunk`` rows at a time with a running top-K merge.
+    ``n_valid`` (an int or a 0-d tensor, read on the device) masks rows
+    ``>= n_valid`` to -inf: their slots keep id -1."""
     N = db_words.shape[0]
     k = min(k, N)
     chunk = max(1, min(chunk, N))
@@ -487,7 +471,7 @@ def merge_topk(sims: torch.Tensor, ids: torch.Tensor, k: int):
     """Merge candidate pools: (B, C) sims and ids -> the top k (B, k) by
     score, ties to the lowest column (as ``jax.lax.top_k``)."""
     k = min(k, sims.shape[1])
-    best, pos = _topk_first(sims, k)
+    best, pos = topk_first(sims, k)
     return best, torch.gather(ids, 1, pos)
 
 
@@ -499,7 +483,7 @@ def scan_topk_pruned(q_words: torch.Tensor, db_words: torch.Tensor, k: int,
     the k-th largest block maximum of each query; a block whose maximum is
     below mu_k for every query holds no top-K item (k items in other
     blocks score >= mu_k), so only the others are rescored, gathered in
-    id order and streamed through K4 with the running top-K.
+    id order and ranked by the fused K4 top-k with their ids.
     ``scanned_fraction`` is the float32 share of blocks rescored (a 0-d
     tensor; 1.0 is no pruning)."""
     B = q_words.shape[0]

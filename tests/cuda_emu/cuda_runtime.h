@@ -9,8 +9,9 @@
 // __shared__ (made `static`) is block memory; an ordinary launch runs its
 // blocks one after another. A launch's dynamic shared memory is a
 // 1024-byte-aligned buffer per block (filled with 0xFF bytes, so a read of
-// what no thread wrote is a bf16 NaN), reached through SM90_DYNAMIC_SMEM
-// (sm90_emu.h); threads 0-127 of a block share a warpgroup barrier.
+// what no thread wrote is a bf16 NaN), reached through DYNAMIC_SMEM
+// (common.cuh) or SM90_DYNAMIC_SMEM (sm90_emu.h); threads 0-127 of a
+// block share a warpgroup barrier.
 // Enough to hold a kernel's logic against its plain PyTorch version;
 // timing, occupancy and the real compiler are the card's business.
 #pragma once

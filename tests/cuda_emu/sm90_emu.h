@@ -44,6 +44,7 @@ inline int sm90_map_bf16(Sm90TensorMap* map, const void* base,
     map->dims[i] = dims[i];
     map->box[i] = box[i];
     if (i) map->strides[i] = strides[i - 1];
+    if (i && strides[i - 1] % 16) return 1;  // as the card's encoder
     if (box[i] == 0 || box[i] > 256) return 1;
   }
   return box[0] == 64 ? 0 : 1;  // one 128-byte swizzle span

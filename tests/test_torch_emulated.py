@@ -166,7 +166,8 @@ def _scan_operands(p, B, N, seed):
     db = synthetic_binary_codes_packed(N, p, seed=seed, n_clusters=8)
     q = synthetic_queries_packed(db, p, B, seed=seed + 1)
     db[5] = 0
-    q[1] = 0
+    if B > 1:
+        q[1] = 0
     q = torch.from_numpy(q.view(np.int32))
     return q, ops.query_popcounts(q), torch.from_numpy(db.view(np.int32))
 
@@ -178,6 +179,56 @@ def test_emulated_hamming_scan_equals_plain(emu, p):
     hs._launch(emu["hamming_scan"], q, z, db, out, 0)
     want = hs.hamming_scan_scores_plain(q, z, db)
     assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+# (p, B, N, k, tile_rows, codes, n_valid, row_ids): several row tiles of
+# several steps, code widths of 2, 3, 4, 7 and 8 words (scalar and 16-byte
+# loads), B in {1, 2, 3, 8, 17} (17: two query tiles; 1: four rows a thread
+# per step), k in {1, 10, 100} and at a key cap (128, and 1024: L = 2048);
+# codes "dup": five distinct codes (ties across every tile boundary, and
+# staging areas that fill within a step), "tile": every row tile a copy of
+# the first (pass 2 gets ~20 x 99 keys above its starting bound, more than
+# its staging area holds); n_valid as an int with row ids and as a device
+# scalar below k
+TOPK_EMU_CASES = [
+    (64, 1, 700, 1, 512, None, None, False),
+    (128, 3, 1000, 10, 512, None, None, False),
+    (200, 8, 1500, 100, 512, "dup", None, False),
+    (256, 17, 1500, 128, 512, "dup", None, False),
+    (128, 3, 2600, 1024, 1024, "dup", None, False),
+    (128, 1, 3000, 100, 2048, "dup", None, False),
+    (64, 2, 20 * 512, 100, 512, "tile", None, False),
+    (96, 8, 900, 10, 512, None, 600, True),
+    (64, 3, 800, 50, 512, "dup", "tensor", False),
+]
+
+
+@pytest.mark.parametrize("case", TOPK_EMU_CASES)
+def test_emulated_fused_topk_equals_plain(emu, case):
+    """The fused K4 top-k (both passes) against ``hamming_scan_topk_plain``
+    by equality: the sims' bits and the ids."""
+    p, B, N, k, tile_rows, codes, n_valid, row_ids = case
+    q, z, db = _scan_operands(p, B, N, seed=B + k)
+    if codes is not None:
+        db = db[torch.arange(N) % (5 if codes == "dup" else tile_rows)]
+        db = db.contiguous()
+    if n_valid == "tensor":
+        n_valid = torch.tensor(k // 2, dtype=torch.int32)
+    rid = torch.arange(N, dtype=torch.int32) * 3 if row_ids else None
+    plan = hs.topk_plan(B, N, k, 1, tile_rows=tile_rows)
+    assert plan["n_tiles"] > 1 and tile_rows > hs.TOPK_THREADS
+    sims = torch.empty((B, k), dtype=torch.float32)
+    ids = torch.empty((B, k), dtype=torch.int32)
+    part = torch.empty((B, plan["n_tiles"], k), dtype=torch.int64)
+    hs._launch_topk(emu["hamming_scan"], q, z, db, k, n_valid, rid, sims, ids,
+                    part, plan, 0)
+    ws, wi = hs.hamming_scan_topk_plain(q, z, db, k, n_valid, rid, chunk=97)
+    assert torch.equal(sims.view(torch.int32), ws.view(torch.int32))
+    assert torch.equal(ids, wi)
+    if codes == "dup" and n_valid is None:   # ties cross the k-th slot
+        scores = hs.hamming_scan_scores_plain(q, z, db)
+        kth = ws[:, -1:]
+        assert bool(((scores == kth).sum(1) > (ws == kth).sum(1)).all())
 
 
 @pytest.mark.parametrize("blk", [128, 2048])
@@ -206,6 +257,12 @@ FLASH_CASES = [
     (1, 33, 40, 2, 1, 32, True, 16, None),
     (2, 3, 60, 4, 2, 32, False, 8, 37),
     (1, 4, 20, 2, 1, 32, False, 0, 0),
+    # head dims between the instantiation widths (16, 48, kimi-k2's 112)
+    # and one the bf16 path pads for TMA (20)
+    (1, 20, 20, 2, 2, 16, True, 0, None),
+    (1, 37, 50, 4, 1, 48, False, 16, None),
+    (2, 3, 60, 4, 2, 112, False, 8, 37),
+    (1, 9, 30, 2, 1, 20, True, 0, None),
 ]
 
 
@@ -337,6 +394,43 @@ def test_flash_attention_bf16_operands_the_kernel_cannot_take_raise():
     q = torch.zeros((1, 4, 65, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="at most 64"):
         fa._launch(None, q, kv, kv, torch.empty_like(q), True, 0, None, 0)
+
+
+class _RecordLaunch:
+    """A stand-in kernel library: records the scalars of each launch."""
+
+    def __init__(self):
+        self.scalars = []
+
+    def __getattr__(self, name):
+        def launch(ptrs, scalars, stream):
+            self.scalars.append(list(scalars[:11]))
+            return 0
+        return launch
+
+
+@pytest.mark.parametrize("D", [16, 48, 112, 20, 3, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_every_head_dim_up_to_256(D, dtype):
+    """No head dim 1 <= D <= 256 is refused before the launch: the kernel
+    gets the row width it reads (a multiple of 8 for bf16, whose TMA row
+    strides need 16 bytes: D is padded with zero columns there) and the
+    true D for the scale."""
+    q = torch.zeros((1, 4, 2, D), dtype=dtype)
+    kv = torch.zeros((1, 4, 1, D), dtype=dtype)
+    lib = _RecordLaunch()
+    fa._launch(lib, q, kv, kv, torch.empty_like(q), True, 0, None, 0)
+    row = -(-D // 8) * 8 if dtype == torch.bfloat16 else D
+    assert lib.scalars == [[1, 4, 4, 2, 1, row,
+                            int(dtype == torch.bfloat16), 1, 0, -1, D]]
+
+
+def test_flash_attention_refuses_head_dims_above_256():
+    q = torch.zeros((1, 4, 2, 257))
+    with pytest.raises(ValueError, match="head dim 257: the kernel takes "
+                                         "1 <= D <= 256"):
+        fa._launch(_RecordLaunch(), q, q[:, :, :1], q[:, :, :1],
+                   torch.empty_like(q), True, 0, None, 0)
 
 
 def test_ptxas_report_reads_registers_smem_and_spills(monkeypatch):

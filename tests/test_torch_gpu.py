@@ -210,9 +210,11 @@ def test_linear_scan_on_card_equals_plain_on_cpu(cuda, p, B, k):
     q = synthetic_queries_packed(db, p, B, seed=p + 1)
     gpu = make_engine("linear_scan", db, p)
     cpu = make_engine("linear_scan", db, p, device="cpu")
-    before = hs.LAUNCHES["hamming_scan"]
+    before = dict(hs.LAUNCHES)
     gi, gs, _ = gpu.knn_batch(q, k)
-    assert hs.LAUNCHES["hamming_scan"] == before + -(-n // (1 << 16))
+    # one fused top-k call, no (B, N) score launch
+    assert hs.LAUNCHES["hamming_scan_topk"] == before["hamming_scan_topk"] + 1
+    assert hs.LAUNCHES["hamming_scan"] == before["hamming_scan"]
     ci, cs, _ = cpu.knn_batch(q, k)
     assert np.array_equal(gi, ci) and np.array_equal(gs, cs)
     qt = torch.from_numpy(q.view(np.int32)).to(cuda)
@@ -220,6 +222,60 @@ def test_linear_scan_on_card_equals_plain_on_cpu(cuda, p, B, k):
     full = ops.scan_topk(qt, dt, k)
     pruned = ops.scan_topk_pruned(qt, dt, k)
     assert torch.equal(full[0], pruned[0]) and torch.equal(full[1], pruned[1])
+
+
+# (p, B, N, k, duplicates, n_valid, row_ids): B = 1 and 64 at the main
+# path's fetch sizes, a ragged query tile at the largest k the kernel
+# takes, a database of five distinct codes (ties across every tile and
+# staging overflows), n_valid as a device scalar below k, and row ids
+TOPK_CASES = [
+    (128, 1, 300_001, 32, False, None, False),
+    (128, 64, 300_001, 128, False, None, False),
+    (64, 17, 100_003, 1024, False, None, False),
+    (256, 3, 70_001, 100, True, None, False),
+    (64, 9, 70_001, 10, True, "tensor", False),
+    (128, 5, 70_001, 50, False, 40_000, True),
+]
+
+
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_fused_scan_topk_kernel_equals_plain(cuda, case):
+    """The fused K4 top-k against its plain version (the chunk loop over
+    the plain scores) on the same card: sims and ids bit for bit."""
+    p, B, N, k, dup, n_valid, row_ids = case
+    q, z, db = _scan_operands(p, B, N, seed=p + B + k, device=cuda)
+    if dup:
+        db = db[torch.arange(N, device=cuda) % 5].contiguous()
+    if n_valid == "tensor":
+        n_valid = torch.tensor(k // 2, dtype=torch.int32, device=cuda)
+    rid = (torch.arange(N, dtype=torch.int32, device=cuda) * 3
+           if row_ids else None)
+    before = hs.LAUNCHES["hamming_scan_topk"]
+    sims, ids = hs.hamming_scan_topk(q, z, db, k, n_valid, rid)
+    assert hs.LAUNCHES["hamming_scan_topk"] == before + 1
+    ws, wi = hs.hamming_scan_topk_plain(q, z, db, k, n_valid, rid)
+    assert torch.equal(_bits(sims), _bits(ws))
+    assert torch.equal(ids.cpu(), wi.cpu())
+
+
+def test_scan_topk_above_the_fused_cap_takes_the_chunked_route(cuda):
+    """k > KCAP_MAX is chosen by shape: one K4 score launch per chunk,
+    counted under ``scan_scores``, and no fused call; the result equals the
+    plain version's."""
+    from repro_torch.obs.metrics import REGISTRY
+
+    q, z, db = _scan_operands(64, 3, 70_001, seed=9, device=cuda)
+    k = hs.KCAP_MAX + 1
+    n0 = REGISTRY.value("launches.scan_scores")
+    t0 = REGISTRY.value("launches.scan_topk")
+    fused = hs.LAUNCHES["hamming_scan_topk"]
+    sims, ids = ops.scan_topk(q, db, k, chunk=1 << 15)
+    assert REGISTRY.value("launches.scan_scores") - n0 == 3
+    assert REGISTRY.value("launches.scan_topk") == t0
+    assert hs.LAUNCHES["hamming_scan_topk"] == fused
+    ws, wi = hs.hamming_scan_topk_plain(q, z, db, k)
+    assert torch.equal(_bits(sims), _bits(ws))
+    assert torch.equal(ids.cpu(), wi.cpu())
 
 
 def test_scan_wrappers_raise_instead_of_falling_back(cuda):
@@ -233,6 +289,11 @@ def test_scan_wrappers_raise_instead_of_falling_back(cuda):
     wide = torch.zeros((2, 9), dtype=torch.int32, device=cuda)   # p > 256
     with pytest.raises(ValueError, match="W=9"):
         hs.hamming_scan_scores(wide, z, wide)
+    with pytest.raises(ValueError, match="W=9"):
+        hs.hamming_scan_topk(wide, z, wide, 4)
+    codes = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1 <= k <= 1024"):
+        hs.hamming_scan_topk(codes, z, codes, hs.KCAP_MAX + 1)
 
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, window, valid_len): MHA, GQA and MQA,
@@ -255,6 +316,13 @@ FLASH_CASES = [
     (1, 70, 70, 2, 1, 32, False, 8, None),
     (1, 4, 160, 8, 1, 256, False, 0, 0),
     (1, 37, 50, 6, 2, 64, True, 0, None),
+    # head dims between the instantiation widths: the reference configs'
+    # tiny 16, 48, kimi-k2's 112, and 20 (bf16: a TMA-padded copy)
+    (2, 40, 40, 4, 1, 16, True, 0, None),
+    (1, 70, 90, 4, 2, 48, False, 16, None),
+    (2, 1, 160, 8, 1, 112, False, 0, 37),
+    (1, 130, 130, 8, 1, 112, True, 0, None),
+    (1, 33, 33, 2, 1, 20, True, 8, None),
 ]
 
 
@@ -328,8 +396,8 @@ def test_flash_attention_bf16_library_runs_on_the_tensor_cores(cuda):
 
 
 def test_flash_attention_raises_instead_of_falling_back(cuda):
-    q = torch.zeros((1, 4, 2, 48), device=cuda)           # D = 48
-    with pytest.raises(ValueError, match="head dim"):
+    q = torch.zeros((1, 4, 2, 257), device=cuda)          # D > 256
+    with pytest.raises(ValueError, match="1 <= D <= 256"):
         fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
     q = torch.zeros((1, 4, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="flash_attention takes"):

@@ -1,11 +1,11 @@
 """The port's exact linear scan against the JAX package's, on the CPU.
 
-The scoring kernels' plain versions (K4 ``hamming_scan``, K5
-``blockmax_scan``, K6 ``verify_tuples``), the launch layer's
-``scan_scores`` / ``scan_topk`` / ``merge_topk`` / ``scan_topk_pruned`` /
-``verify_tuples_op``, and ``make_engine("linear_scan", ...,
-compute_backend="cuda", device="cpu")``, each on the same numpy inputs as
-the reference's counterpart.
+The scoring kernels' plain versions (K4 ``hamming_scan``, scores and the
+fused top-k, K5 ``blockmax_scan``, K6 ``verify_tuples``), the launch
+layer's ``scan_scores`` / ``scan_topk`` / ``merge_topk`` /
+``scan_topk_pruned`` / ``verify_tuples_op``, and
+``make_engine("linear_scan", ..., compute_backend="cuda", device="cpu")``,
+each on the same numpy inputs as the reference's counterpart.
 
 Tolerances. The port's float32 scores are ``num * (1 / sqrt(den_sq))``
 with every step correctly rounded, and are held bit for bit against that
@@ -38,6 +38,7 @@ from repro.kernels import ops as r_ops
 from repro.obs.metrics import REGISTRY as R_REG
 from repro_torch.core.engine import make_engine as t_make
 from repro_torch.kernels import blockmax_scan as t_bm
+from repro_torch.kernels import hamming_scan as t_hs
 from repro_torch.kernels import ops as t_ops
 from repro_torch.obs.metrics import REGISTRY as T_REG
 
@@ -223,6 +224,69 @@ def test_scan_topk_matches_jax(case):
         assert use_pallas or held > 0
 
 
+@pytest.mark.parametrize("k", [1, 10, 100])
+@pytest.mark.parametrize("B", [1, 3, 64])
+@pytest.mark.parametrize("p", [32, 64, 128, 256])
+def test_fused_topk_plain_matches_pallas_reference(p, B, k):
+    """``hamming_scan_topk_plain`` (the fused K4 top-k's plain version) and
+    ``ops.scan_topk`` against the reference's ``scan_topk`` on its Pallas
+    kernel (interpret mode), with chunks smaller than N, a zero-norm query
+    (B > 1), ``n_valid`` below N and, at k = 100, below k (-inf/-1 slots).
+    Sims within ATOL and the same exact cosines (``_hold_topk``; the Pallas
+    ``rsqrt`` splits tie groups, so its ids are held by cosines); the
+    port's sims and ids exactly the stable selection over the correctly
+    rounded numpy scores."""
+    N, chunk = 600, 256
+    n_valid = {1: None, 10: 450, 100: 60}[k]
+    db, q = _clustered(N, p, B, seed=p * 7 + B + k)
+    if B > 1:
+        q[-1] = 0
+    r_sims, r_ids = r_ops.scan_topk(
+        jnp.asarray(q), jnp.asarray(db), k, chunk=chunk, use_pallas=True,
+        n_valid=None if n_valid is None else jnp.int32(n_valid))
+    tq = _t(q)
+    plain = t_hs.hamming_scan_topk_plain(tq, t_ops.query_popcounts(tq), _t(db),
+                                         k, n_valid, chunk=chunk)
+    t0 = T_REG.value("launches.scan_topk")
+    t_sims, t_ids = t_ops.scan_topk(tq, _t(db), k, chunk=chunk,
+                                    n_valid=n_valid)
+    assert T_REG.value("launches.scan_topk") - t0 == 1
+    assert torch.equal(t_sims, plain[0]) and torch.equal(t_ids, plain[1])
+    _hold_topk(t_sims, t_ids, r_sims, r_ids, q, db, same_row_ids=False)
+    full = _eq3_float32(q, db)
+    if n_valid is not None:
+        full[:, n_valid:] = -np.inf
+    w_sims, w_ids = _stable_topk(full, k)
+    w_ids = np.where(np.isfinite(w_sims), w_ids, -1)
+    assert np.array_equal(t_sims.numpy().view(np.int32), w_sims.view(np.int32))
+    assert np.array_equal(t_ids.numpy(), w_ids)
+    if k == 100:
+        assert np.all(t_ids.numpy()[:, n_valid:] == -1)
+
+
+@pytest.mark.parametrize("B,N,k", [(1, 10_000_000, 32), (1, 10_000_000, 128),
+                                   (64, 10_000_000, 128), (64, 10_000_000, 32),
+                                   (17, 100_003, 1024), (3, 500, 10)])
+def test_fused_topk_plan_fills_the_card_within_its_memory(B, N, k):
+    """The fused kernel's shape on a 132-SM card: at n = 10M and B = 1 at
+    least two blocks per SM; pass 1's (B, tiles, k) int64 keys within 1%
+    of the (B, N) float32 scores wherever N allows a tile per 200 k rows;
+    row tiles of whole steps that cover N; L a power of two holding the
+    best k and a step of staging; QT queries whose keys fit 64 KiB."""
+    plan = t_hs.topk_plan(B, N, k, 132)
+    L, QT, rows, tiles = (plan["L"], plan["QT"], plan["tile_rows"],
+                          plan["n_tiles"])
+    assert L & (L - 1) == 0 and L - k >= t_hs.TOPK_THREADS
+    assert 1 <= QT <= B and QT * L * 8 <= 64 * 1024
+    assert plan["n_qtiles"] * QT >= B > (plan["n_qtiles"] - 1) * QT
+    assert rows % t_hs.TOPK_THREADS == 0
+    assert tiles * rows >= N > (tiles - 1) * rows
+    if N >= 200 * k:
+        assert B * tiles * k * 8 <= 0.01 * B * N * 4
+    if B == 1 and N == 10_000_000:
+        assert tiles * plan["n_qtiles"] >= 2 * 132
+
+
 @pytest.mark.parametrize("k", [1, 7, 64])
 def test_merge_topk_matches_jax(k):
     rng = np.random.default_rng(k)
@@ -265,8 +329,11 @@ def test_linear_scan_cuda_backend_equals_reference(p, B, k):
                        compute_backend="pallas").knn_batch(q, k)
     eng = t_make("linear_scan", db, p, compute_backend="cuda", device="cpu")
     n0 = T_REG.value("launches.scan_scores")
+    t0 = T_REG.value("launches.scan_topk")
     ti, ts, st = eng.knn_batch(q, k)
-    assert T_REG.value("launches.scan_scores") - n0 == 1   # one 65536 chunk
+    # one fused top-k call, no (B, N) score launch
+    assert T_REG.value("launches.scan_topk") - t0 == 1
+    assert T_REG.value("launches.scan_scores") - n0 == 0
     assert np.array_equal(ti, ri) and np.array_equal(ts, rs)
     assert ti.dtype == np.int64 and ts.dtype == np.float64
     assert st.total("retrieved") == B * 3000
