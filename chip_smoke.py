@@ -16,16 +16,22 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    K1 (grouped verify) at p in {64, 128}, B = 64, C = 2048 with ragged
    lengths that include 0; K2 (probing walk) and K3 (scan) on the operands
    the main path hands them at n = 2^18 clustered codes, B = 64 mixed z:
-   the batched walk (G > 1) and the per-group walk (G = 1), each with
-   check_every in {1, 3}, the cross-group scan, and the per-group scan
-   (``probe_fused=False`` with a truncated stream), timed; K4 (linear-scan
+   the batched walk (G > 1) and the per-group walk (G = 1), each in both
+   forms (cooperative grid, one thread-block cluster) with check_every in
+   {1, 3}, touched lists as sets, and the touched-list extraction after
+   each against the plain extraction of the plain walk's whole map (the
+   kernel's map all POS_INF after it); the fused scan (cross-group and
+   per group, timed at G = 1) and the map-writing scan on the same
+   operands, and the map route above k = 1024 (``probe_stream_cap`` 256
+   sends queries to the scans); K4 (linear-scan
    scores, and the fused score-and-top-k at k in {32, 128} and at B = 1,
    k = 1024, also over a database of five distinct codes), K5 (block
    maxima) and K6 (one-query tuples) at n = 2^18 (a ragged last tile),
    p in {64, 128}, B = 64 with a zero-norm query and an all-zero code,
-   bit for bit; K7 (flash attention) on ``FLASH_CASES`` (G = 1 to 8 and
-   3, ragged tiles, windows, decode rows, head dims 16 to 256 with 16, 20,
-   48 and 112 between the kernel's widths) in float32 and bf16 against its
+   bit for bit; K7 (flash attention) on ``FLASH_CASES`` (G = 1 to 8, 3
+   and 96, ragged tiles, windows, decode rows, head dims 16 to 512 with
+   16, 20, 48, 112, 320 and 512 between and above the kernel's widths) in
+   float32 and bf16 against its
    plain version in float32 (float32 within 2e-5, bf16 within
    4e-3 * max(1, |plain|));
 3. the two exact paths at full size: n = 10,000,000 clustered codes
@@ -35,13 +41,17 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    queries per case against the exact float64 linear scan.
    a. AMIH, through ``make_engine("amih", ...)`` (the device walk, m = 4
       and 8), query cache off. Per case: one walk launch and at most one
-      scan launch per batch; results equal the same index with
-      ``probe_fused=False``. The host walk with the CUDA verify (K1)
+      scan launch per batch; bailed queries and K2's iterations per
+      launch logged; results equal the same index with
+      ``probe_fused=False``. One B = 64 batch at K = 2048, above the fused
+      scan's cap, takes the map route for its bails. The host walk with the
+      CUDA verify (K1)
       answers 4 queries per p and must equal the device path. One batch
       at p = 128, B in {64, 1}, runs under ``torch.profiler`` (card busy
       time, idle share, kernels by device time; Chrome traces in
-      ``chiprun_out/``) and once more with the port's tracer on (host
-      time by layer span).
+      ``chiprun_out/``; a trace with no device time is taken again, and
+      reported as empty if it stays so) and once more with the port's
+      tracer on (host time by layer span).
    b. The linear scan, through ``make_engine("linear_scan", ...)`` (the
       CUDA backend: one fused K4 score-and-top-k call, a float64 host
       rerank). Per case: one fused call and no K4 score launch per batch;
@@ -78,14 +88,18 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       forward through K7's plain version; K7 launched layers x encoder
       batches times.
    Every kernel launch counter is set to 0 just before each path (a, b)
-   at each p, and before c, and read just after it; K2 and K3 launches
-   on path a are also counted by wrapper and query rows;
+   at each p, and before c, and read just after it; K2 launches count by
+   form (grid, cluster), K3 by kernel (fused, map), and on path a also by
+   wrapper and query rows;
 4. each kernel against its plain version again, on operands captured from
    the main path at full size, with CUDA-event times beside each kernel's
    bound (the bytes it must move at 3.35 TB/s, or its 32-bit integer
    operations and population counts at the card's peak issue rates for
    them, or K7's multiply-adds at the dense bf16 tensor rate, whichever
-   takes longest; see ``op_rates`` and ``flash_bound_ms``); the fused top-k
+   takes longest; see ``op_rates`` and ``flash_bound_ms``); K2 in both
+   forms with its iterations (ms per iteration) and the extraction after
+   it, the fused K3 beside the map-writing K3 and the map's extraction;
+   the fused top-k
    at the main path's B = 64 call and at its first query alone (B = 1); K7
    also beside
    ``scaled_dot_product_attention`` on the same tensors (its
@@ -166,7 +180,7 @@ class Recorder:
     as before."""
 
     WALKS = ("device_probe_walk_batched", "device_probe_walk",
-             "device_probe_scan_multi", "device_probe_scan")
+             "device_probe_scan_topk", "device_probe_scan_multi")
     SCANS = ("hamming_scan_scores", "hamming_scan_topk", "blockmax_scores",
              "verify_tuples")
 
@@ -175,6 +189,7 @@ class Recorder:
         self.keep = keep
         self.calls = {}
         self.counts = {}            # (function name, query rows) -> calls
+        self.iters = []             # (walk name, rows, iters tensor)
         self.orig = []
 
     def __enter__(self):
@@ -194,7 +209,10 @@ class Recorder:
                         calls[:] = [(a, kw)]
                 elif len(calls) < self.keep:
                     calls.append((a, kw))
-                return _fn(*a, **kw)
+                out = _fn(*a, **kw)
+                if _name.startswith("device_probe_walk"):
+                    self.iters.append((_name, key[1], out[5]))
+                return out
 
             setattr(mod, name, wrapped)
         return self
@@ -210,18 +228,30 @@ def sites(mod, names):
     return [(mod, name) for name in names]
 
 
+def _hold_cycles(host_s: float, calls: int) -> int:
+    """Cycles of a spin kernel that outlasts the host's enqueueing of
+    ``calls`` calls that took ``host_s`` seconds each to enqueue: twice
+    that at 2 GHz, and at least 0.1 ms a call."""
+    return int(calls * max(2e5, host_s * 4e9))
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Card time per call of ``fn``: CUDA events around ``reps`` calls.
-    A spin kernel queued first (~0.1 ms per call at ~2 GHz) holds the
-    stream until every call is enqueued, so the host's time to launch a
-    short kernel does not show as card time between calls."""
+    A spin kernel queued first holds the stream until every call is
+    enqueued (twice the host's time to enqueue one call, timed on a warm
+    call, so a wrapper's host work does not show as card time between
+    calls); ``fn`` must not wait for the card."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(reps * 2e5))
+    torch.cuda._sleep(_hold_cycles(host_s, reps))
     t0.record()
     for _ in range(reps):
         fn()
@@ -250,36 +280,64 @@ def max_err(outs, refs) -> int:
     return worst
 
 
-def profile_batch(fn, label, out_dir):
+def profile_batch(fn, label, out_dir, expect=()):
     """One traced call of ``fn`` under ``torch.profiler``: wall time, the
-    card's busy time (the sum of its kernels) and the kernels that took
-    it, by device time. The Chrome trace goes to ``out_dir``. Returns the
-    kernels as (ms, count, name), longest first."""
+    card's busy time (the sum of its kernels), the kernels that took it by
+    device time, and the host's ops by their own time. The Chrome trace
+    goes to ``out_dir``. A trace that records no device time, or no kernel
+    named in ``expect`` (which ``fn`` launches), is taken once more; if it
+    is empty again it is reported as empty, with no busy time or idle
+    share, and if it still lacks an expected kernel, as incomplete, its
+    busy time a lower bound. Returns the kernels as (ms, count, name),
+    longest first ([] for an empty profile)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows, busy = [], 0.0
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0.0)
-        rows.append((dt / 1e3, e.count, e.key))
-        busy += dt / 1e3
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows, busy = [], 0.0
+        for e in prof.key_averages():
+            if "CUDA" not in str(getattr(e, "device_type", "")):
+                continue
+            dt = getattr(e, "self_device_time_total", None)
+            if dt is None:
+                dt = getattr(e, "self_cuda_time_total", 0.0)
+            rows.append((dt / 1e3, e.count, e.key))
+            busy += dt / 1e3
+        missing = [x for x in expect
+                   if not any(x in key for _, _, key in rows)]
+        if busy > 0 and not missing:
+            break
+        log(f"  profile {label}: attempt {attempt} recorded "
+            + (f"no kernel named {missing}" if busy > 0
+               else "no device time"))
+    if busy <= 0:
+        log(f"  profile {label}: EMPTY (no device time recorded twice; wall "
+            f"{wall:.3f} ms under the profiler); not a measurement")
+        return []
     rows.sort(reverse=True)
-    log(f"  profile {label}: wall {wall:.3f} ms (under the profiler), card "
-        f"busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}")
-    for dt, cnt, key in rows[:10]:
+    if missing:
+        log(f"  profile {label}: INCOMPLETE (no kernel named {missing} "
+            f"recorded twice): wall {wall:.3f} ms under the profiler, card "
+            f"busy at least {busy:.3f} ms")
+    else:
+        log(f"  profile {label}: wall {wall:.3f} ms (under the profiler), "
+            f"card busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}")
+    for dt, cnt, key in rows[:12]:
         log(f"    {dt:10.4f} ms  x{cnt:<5d} {key[:80]}")
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if "CUDA" not in str(getattr(e, "device_type", ""))),
+                  reverse=True)
+    log(f"    host ops by self time (ms): " + "; ".join(
+        f"{key[:40]} {dt:.3f} x{cnt}" for dt, cnt, key in host[:10]))
     out_dir.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(out_dir / f"trace_{label}.json"))
     return rows
@@ -307,9 +365,211 @@ def span_breakdown(fn, label):
 
 
 # ------------------------------------------------------------------ checks
+def cuda_ms_split(fns, reps: int):
+    """Card time per call of each of ``fns``, run in turn ``reps`` times
+    (state may pass from one to the next: a walk, then the extraction that
+    resets its map): CUDA events around each call, the stream held as in
+    ``cuda_ms``; none of ``fns`` may wait for the card. Returns the mean
+    ms of each."""
+    import torch
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in fns:
+        f()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+          for _ in range(reps)]
+    torch.cuda._sleep(_hold_cycles(host_s, reps))
+    for r in range(reps):
+        for i, f in enumerate(fns):
+            ev[r][i].record()
+            f()
+        ev[r][-1].record()
+    torch.cuda.synchronize()
+    return [sum(ev[r][i].elapsed_time(ev[r][i + 1]) for r in range(reps))
+            / reps for i in range(len(fns))]
+
+
+def _walk_fn(dp, name):
+    if name == "device_probe_walk_batched":
+        return dp.device_probe_walk_batched, dp.device_probe_walk_batched_plain
+    return dp.device_probe_walk, dp.device_probe_walk_plain
+
+
+def _walk_args(torch, dp, name, a, kw):
+    """A fresh all-POS_INF map in the walk's operands: (args, kw)."""
+    kw = {key: v for key, v in kw.items() if key != "posmap_in"}
+    if name == "device_probe_walk_batched":
+        return (torch.full_like(a[0], dp.POS_INF),) + tuple(a[1:]), kw
+    B, n_pad = a[0].shape[0], a[18].shape[0]
+    return tuple(a), dict(kw, posmap_in=torch.full(
+        (B, n_pad), dp.POS_INF, dtype=torch.int32, device=a[0].device))
+
+
+def _walk_forms(name, a):
+    """The walk's forms for one call: the cluster takes one z-group of at
+    most 4 queries (the per-group walk's small launches)."""
+    if name == "device_probe_walk" and a[0].shape[0] <= 4:
+        return ("grid", "cluster")
+    return ("grid",)
+
+
+def _walk_tstop_k(name, a):
+    if name == "device_probe_walk_batched":
+        return a[7], a[8]
+    return a[5], a[6]
+
+
+def check_walk_call(dp, name, a, kw, timed=False, reps=3):
+    """K2 in its forms (cooperative grid; one cluster where the launch
+    allows it) at check_every 1 and 3 against the plain walk, bit for bit
+    (touched lists as sets), and the extraction kernel after the kernel
+    walk against the plain
+    extraction of the plain walk's whole map (``extract_map``), bit for
+    bit, the kernel's map all POS_INF after it. With ``timed``: at the
+    call's own cadence, the card time of the walk in each form and of the
+    extraction after it (one POS_INF map, reset by each extraction), the
+    plain walk's and the plain extraction's host-clock times, the walk's
+    iterations and outputs."""
+    import torch
+
+    kernel, plain = _walk_fn(dp, name)
+    saved = dict(dp.LAUNCHES)
+    entry = {"max_abs_err": 0, "extract_err": 0, "calls": 0}
+    for ce in (1, 3):
+        args, kw2 = _walk_args(torch, dp, name, a, dict(kw, check_every=ce))
+        ref = plain(*args, **kw2)
+        torch.cuda.synchronize()
+        t_stop, k = _walk_tstop_k(name, a)
+        done = torch.nonzero(ref[3]).flatten()
+        want = dp.extract_map(ref[0][done], t_stop[done], k)
+        for form in _walk_forms(name, a):
+            args, kw2 = _walk_args(torch, dp, name, a,
+                                   dict(kw, check_every=ce))
+            got = kernel(*args, **kw2, form=form)
+            torch.cuda.synchronize()
+            if dp.LAST_WALK_GRID[2] != form:
+                raise AssertionError(f"{name} ran as {dp.LAST_WALK_GRID[2]}, "
+                                     f"not {form}")
+            cap = kw["cap"]
+            err = max_err(dp.walk_canonical(got, cap)[1:],
+                          dp.walk_canonical(ref, cap)[1:])
+            err = max(err, max_err([got[0]], [ref[0]]))
+            ids, pos = dp.extract_touched(got[0], got[6], got[8], t_stop, k,
+                                          done, int(got[5]) * cap)
+            entry["extract_err"] = max(entry["extract_err"],
+                                       max_err([ids, pos], want[:2]))
+            if not bool((got[0] == dp.POS_INF).all()):
+                raise AssertionError(f"{name}: the extraction left entries "
+                                     "of the map below POS_INF")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry["calls"] += 1
+            del got
+        if timed and ce == kw.get("check_every", 1):
+            entry["out"] = (None, ref[1].clone(), ref[2].clone(), None, None,
+                            int(ref[5]), None, ref[7].clone(), None)
+            entry["iters"] = int(ref[5])
+            entry["done_rows"] = int(done.numel())
+            rows = done.clone()
+            width = int(ref[5]) * kw["cap"]
+            for form in _walk_forms(name, a):
+                args, kw3 = _walk_args(torch, dp, name, a,
+                                       dict(kw, check_every=ce))
+                pm = args[0] if name.endswith("batched") else kw3["posmap_in"]
+                hold = {}
+
+                def walk():
+                    hold["out"] = kernel(*args, **kw3, form=form)
+
+                def extract():
+                    o = hold["out"]
+                    dp.extract_touched(pm, o[6], o[8], t_stop, k, rows,
+                                       width)
+
+                (entry[f"ms_{form}"],
+                 entry[f"extract_ms_{form}"]) = cuda_ms_split([walk, extract],
+                                                              reps)
+            walk()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = hold["out"]
+            dp.extract_touched_plain(pm, o[6], o[8], t_stop, k, rows, width)
+            torch.cuda.synchronize()
+            entry["extract_plain_ms"] = (time.perf_counter() - t0) * 1e3
+            entry["width"], entry["k"] = width, k
+            t0 = time.perf_counter()
+            plain(*_walk_args(torch, dp, name, a,
+                              dict(kw, check_every=ce))[0], **kw2)
+            torch.cuda.synchronize()
+            entry["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            entry["args"], entry["kw"] = a, dict(kw, check_every=ce)
+        del ref
+    dp.LAUNCHES.update(saved)                   # comparisons do not count
+    return entry
+
+
+def check_scan_topk_call(dp, a, kw, timed=False, reps=5):
+    """The fused K3 against its plain version (the map scan, then
+    ``extract_map``), and the map-writing K3 against its plain map, both
+    on one bail call's operands, bit for bit. With ``timed``: both
+    kernels' card times, the map route's extraction after the map kernel,
+    and the plain version's host-clock time."""
+    import numpy as np
+    import torch
+
+    q_words, gid, t_stop, db_pad, inv_pos, n_valid, k = a
+    kw_map = {key: v for key, v in kw.items() if key != "plan"}
+    saved = dict(dp.LAUNCHES)
+    got = dp.device_probe_scan_topk(*a, **kw)
+    torch.cuda.synchronize()
+    pm_plain = dp.device_probe_scan_multi_plain(q_words, gid, db_pad,
+                                                inv_pos, n_valid, **kw_map)
+    ref = dp.extract_map(pm_plain, t_stop, k)
+    torch.cuda.synchronize()
+    entry = {"max_abs_err": max_err(got, ref)}
+    pm = dp.device_probe_scan_multi(q_words, gid, db_pad, inv_pos, n_valid,
+                                    **kw_map)
+    torch.cuda.synchronize()
+    entry["map_max_abs_err"] = max_err([pm], [pm_plain])
+    del pm_plain
+    if timed:
+        # the plan's arrays placed on the card once, so that no call waits
+        plan = dict(kw["plan"])
+        plan["flat"] = torch.from_numpy(np.concatenate(
+            [plan["order"].astype(np.int32), plan["segs"].reshape(-1),
+             plan["tabs"].reshape(-1), plan["qtab"]])).to(q_words.device)
+        kw_t = dict(kw, plan=plan)
+        entry["ms"] = cuda_ms(lambda: dp.device_probe_scan_topk(*a, **kw_t),
+                              reps)
+        entry["map_ms"] = cuda_ms(lambda: dp.device_probe_scan_multi(
+            q_words, gid, db_pad, inv_pos, n_valid, **kw_map), reps)
+        pm = dp.device_probe_scan_multi(q_words, gid, db_pad, inv_pos,
+                                        n_valid, **kw_map)
+        entry["map_extract_ms"] = cuda_ms(
+            lambda: dp.extract_map(pm, t_stop, k), 2)
+        t0 = time.perf_counter()
+        dp.device_probe_scan_topk_plain(*a, **kw_map)
+        torch.cuda.synchronize()
+        entry["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        dp.device_probe_scan_multi_plain(q_words, gid, db_pad, inv_pos,
+                                         n_valid, **kw_map)
+        torch.cuda.synchronize()
+        entry["map_plain_ms"] = (time.perf_counter() - t0) * 1e3
+        entry["args"] = a
+    del pm
+    dp.LAUNCHES.update(saved)                   # comparisons do not count
+    return entry
+
+
 def check_walk_calls(dp, rec, label, timed=frozenset(), reps=3):
-    """Kernel vs plain on every recorded walk/scan call, timing the kernels
-    named in ``timed``; returns per-kernel measurements {name: dict}."""
+    """Kernel vs plain on every recorded walk/scan call (the grouped
+    verify, both walks, the fused scan and the map scan), timing the first
+    call of each name in ``timed``; returns per-name measurements."""
     import torch
 
     from repro_torch.kernels import verify_tuples as vt
@@ -317,72 +577,84 @@ def check_walk_calls(dp, rec, label, timed=frozenset(), reps=3):
     res = {}
     for name, calls in rec.calls.items():
         for (a, kw) in calls:
+            is_timed = name in timed and "ms" not in res.get(name, {})
             if name == "gather_verify_grouped":
-                kernel = vt.gather_verify_grouped
-                cadences = (None,)
-
-                def plain(q, db, idx, lens, p):
-                    return vt.gather_verify_grouped_plain(q, db, idx, lens, p)
-            elif name == "device_probe_walk_batched":
-                kernel, plain = dp.device_probe_walk_batched, \
-                    dp.device_probe_walk_batched_plain
-                cadences = (1, 3)
-            elif name == "device_probe_walk":
-                kernel, plain = dp.device_probe_walk, dp.device_probe_walk_plain
-                cadences = (1, 3)
-            elif name == "device_probe_scan_multi":
-                kernel, plain = dp.device_probe_scan_multi, \
-                    dp.device_probe_scan_multi_plain
-                cadences = (None,)
-            else:
-                kernel, plain = dp.device_probe_scan, dp.device_probe_scan_plain
-                cadences = (None,)
-            for ce in cadences:
-                kw2 = dict(kw) if ce is None else dict(kw, check_every=ce)
-                if name == "device_probe_walk_batched":
-                    buf = a[0]
-                    args = lambda: (torch.empty_like(buf),) + tuple(a[1:])
-                else:
-                    args = lambda: tuple(a)
-                saved = dict(dp.LAUNCHES), dict(vt.LAUNCHES)
-                got = kernel(*args(), **kw2)
+                saved = dict(vt.LAUNCHES)
+                got = vt.gather_verify_grouped(*a, **kw)
                 torch.cuda.synchronize()
-                ref = plain(*args(), **kw2)
-                torch.cuda.synchronize()
-                got = got if isinstance(got, tuple) else (got,)
-                ref = ref if isinstance(ref, tuple) else (ref,)
-                err = max_err(got, ref)
-                entry = res.setdefault(name, {"max_abs_err": 0, "calls": 0})
-                entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                entry["calls"] += 1
-                if name in timed and ce in (None, kw.get("check_every", 1)):
-                    entry["ms"] = cuda_ms(lambda: kernel(*args(), **kw2), reps)
+                ref = vt.gather_verify_grouped_plain(*a[:4], kw["p"])
+                entry = {"max_abs_err": max_err([got], [ref])}
+                if is_timed:
+                    entry["ms"] = cuda_ms(
+                        lambda: vt.gather_verify_grouped(*a, **kw), reps)
                     t0 = time.perf_counter()
-                    plain(*args(), **kw2)
+                    vt.gather_verify_grouped_plain(*a[:4], kw["p"])
                     torch.cuda.synchronize()
                     entry["plain_ms"] = (time.perf_counter() - t0) * 1e3
-                    entry["args"], entry["kw"], entry["out"] = a, kw2, got
-                dp.LAUNCHES.update(saved[0])   # comparisons do not count
-                vt.LAUNCHES.update(saved[1])
-            rows = a[1 if name.endswith("batched") else 0].shape[0]
-            if name == "gather_verify_grouped":
-                rows = f"{rows}, C={a[2].shape[1]}"
-            how = ("check_every 1 and 3" if cadences[0] is not None
-                   else "one launch")
-            log(f"  {label} {name} ({how}, B={rows}): equal")
+                    entry["args"] = a
+                vt.LAUNCHES.update(saved)
+                how = f"B={a[0].shape[0]}, C={a[2].shape[1]}: equal"
+            elif name.startswith("device_probe_walk"):
+                entry = check_walk_call(dp, name, a, kw, is_timed, reps)
+                rows = a[1 if name.endswith("batched") else 0].shape[0]
+                how = (f"B={rows}, {' and '.join(_walk_forms(name, a))} "
+                       "form, check_every 1 and 3, and the extraction kernel "
+                       "after it: equal")
+            elif name == "device_probe_scan_topk":
+                entry = check_scan_topk_call(dp, a, kw, is_timed, reps)
+                how = (f"B={a[0].shape[0]}, k={a[6]}, {a[4].shape[0]} "
+                       "inv_pos rows, fused and map kernels: equal")
+            else:
+                q_words, gid, db_pad, inv_pos, n_valid = a
+                saved = dict(dp.LAUNCHES)
+                got = dp.device_probe_scan_multi(*a, **kw)
+                torch.cuda.synchronize()
+                entry = {"max_abs_err": max_err(
+                    [got], [dp.device_probe_scan_multi_plain(*a, **kw)])}
+                del got
+                dp.LAUNCHES.update(saved)
+                how = f"B={a[0].shape[0]} (the map route): equal"
+            prev = res.get(name)
+            if prev is None or ("ms" in entry and "ms" not in prev):
+                if prev is not None:
+                    entry["max_abs_err"] = max(entry["max_abs_err"],
+                                               prev["max_abs_err"])
+                res[name] = entry
+            else:
+                prev["max_abs_err"] = max(prev["max_abs_err"],
+                                          entry["max_abs_err"])
+            log(f"  {label} {name} ({how})")
     return res
 
 
 # One verify of a code of W words: per word two and-nots, two population
 # counts and two adds; then the key's multiply-add and a few compares,
 # indexing and masking (``extra``).
-def walk_bound_ms(entry, W):
-    """Least time of one walk launch: posmap written once, every retrieved
-    candidate's id and code read once, two CSR offsets per probe."""
-    posmap, probes, retrieved = entry["out"][:3]
+def walk_bound_ms(out, W, k=0):
+    """Least time of one walk launch: every retrieved candidate's id and
+    code read once, two CSR offsets per probe, and per touched entry its
+    map write and its list entry; no fill of the (B, n_pad) map. With
+    ``k``, the extraction after it too: per touched entry its list entry
+    and map entry read and its map entry reset, and (B, k) ids and
+    positions written."""
+    probes, retrieved, n_touched = out[1], out[2], out[7]
     live = int(retrieved.sum())
-    nbytes = posmap.numel() * 4 + live * (4 + 4 * W) + int(probes.sum()) * 8
+    touched = int(n_touched.sum())
+    nbytes = live * (4 + 4 * W) + int(probes.sum()) * 8 + touched * 8
+    if k:
+        nbytes += touched * 12 + n_touched.numel() * k * 8
     return bound_ms(nbytes, live * (4 * W + 8), live * 2 * W)
+
+
+def extract_bound_ms(entry):
+    """Least time of one extraction kernel launch: every row's list read
+    once (width entries), each touched entry's map entry read and reset,
+    and (rows done, k) ids and positions written."""
+    B = entry["out"][7].numel()
+    touched = int(entry["out"][7].sum())
+    nbytes = (B * entry["width"] * 4 + touched * 8
+              + entry["done_rows"] * entry["k"] * 8)
+    return bound_ms(nbytes, B * entry["width"], 0)
 
 
 # A scan of B queries over N codes needs less: r10 = z - |q & c| and
@@ -395,8 +667,9 @@ def pair_bound_ms(nbytes, B, N, W, extra):
 
 
 def scan_bound_ms(q_words, db_pad):
-    """Least time of a K3 launch: codes and queries read once, the (B,
-    n_pad) keys written once; per pair the key's r10, r01 and multiply-add."""
+    """Least time of a map-writing K3 launch: codes and queries read once,
+    the (B, n_pad) positions written once; per pair the key's r10, r01 and
+    multiply-add."""
     B, W = q_words.shape
     n_pad = db_pad.shape[0]
     nbytes = db_pad.numel() * 4 + B * n_pad * 4 + q_words.numel() * 4
@@ -697,11 +970,13 @@ def scan_path(p, db, batch, singles, chk, want_topk, amih_rows, *, dev,
         f"to the host's tuples")
     if p == 128:
         profile_batch(lambda: eng.knn_batch(batch, 10),
-                      "scan_p128_B64_K10", ROOT / "chiprun_out")
+                      "scan_p128_B64_K10", ROOT / "chiprun_out",
+                      expect=("scan_topk",))
         span_breakdown(lambda: eng.knn_batch(batch, 10),
                        "scan_p128_B64_K10")
         profile_batch(lambda: eng.knn_batch(singles[1:2], 10),
-                      "scan_p128_B1_K10", ROOT / "chiprun_out")
+                      "scan_p128_B1_K10", ROOT / "chiprun_out",
+                      expect=("scan_topk",))
         span_breakdown(lambda: eng.knn_batch(singles[1:2], 10),
                        "scan_p128_B1_K10")
 
@@ -716,8 +991,9 @@ FP32_FLOPS = 67e12
 # causal or not, windows 8, 16, 24 and 64, valid_len in {0, 1, 37, 100,
 # 160}, ragged Sq and Sk (100, 130, 160), D in {32, 64, 128, 256} and
 # between them (the reference configs' tiny 16, 48, kimi-k2's 112, and 20,
-# which the bf16 path pads to 24 for TMA), G in {1, 2, 3, 4, 8} (G = 3:
-# 64-row tiles that straddle a head group)
+# which the bf16 path pads to 24 for TMA), D = 320 and 512 above them
+# (256-column chunks and output slices), G in {1, 2, 3, 4, 8, 96} (G = 3:
+# 64-row tiles that straddle a head group; G = 96: two head tiles)
 FLASH_CASES = [
     (2, 128, 128, 8, 8, 64, True, 0, None),
     (2, 128, 128, 8, 2, 128, False, 0, None),
@@ -739,6 +1015,11 @@ FLASH_CASES = [
     (2, 128, 128, 8, 1, 112, True, 0, None),
     (2, 1, 160, 8, 2, 112, False, 0, 37),
     (1, 100, 100, 4, 2, 20, True, 16, None),
+    (2, 100, 130, 4, 1, 320, True, 0, None),
+    (1, 160, 160, 2, 2, 512, False, 24, None),
+    (2, 1, 160, 4, 1, 512, False, 0, 37),
+    (2, 100, 100, 96, 1, 64, True, 0, None),
+    (1, 4, 160, 96, 1, 256, False, 16, 100),
 ]
 
 
@@ -1065,7 +1346,7 @@ def retrieval_path(dev, tag, zero_counts):
                pooled_diff=diff)
 
     rows = profile_batch(lambda: pooled(tok), "encode_gemma2b_B32",
-                         ROOT / "chiprun_out")
+                         ROOT / "chiprun_out", expect=("flash_attention",))
     fa.LAUNCHES.update(saved)                 # comparisons do not count
     k7_ms = sum(dt for dt, _, key in rows if "flash_attention" in key)
     gemm_ms = sum(dt for dt, _, key in rows
@@ -1156,7 +1437,7 @@ def main() -> int:
     db_s = synthetic_binary_codes_packed(n_small, 64, seed=SEED)
     q_s = synthetic_queries_packed(db_s, 64, 64, seed=SEED + 1)
     eng = make_engine("amih", db_s, 64, m=4, query_cache_size=0)
-    with Recorder(sites(dp, Recorder.WALKS), keep=3) as rec:
+    with Recorder(sites(dp, Recorder.WALKS), keep=8) as rec:
         eng.knn_batch(q_s, 10)                    # batched walk, G > 1
         eng.knn_batch(q_s[:1], 10)                # per-group walk, G = 1
         eng.index.probe_fused = False
@@ -1166,20 +1447,30 @@ def main() -> int:
         eng2 = make_engine("amih", db_s, 64, m=4, query_cache_size=0,
                            probe_stream_cap=256)
         eng2.knn_batch(q_s, 10)
+        # k above the fused scan's cap: the map route
+        eng2.knn_batch(q_s[:8], 2 * dp.KCAP_MAX)
         eng2.index.probe_fused = False            # ... and the per-group scan
         eng2.knn_batch(q_s, 10)
     missing = set(Recorder.WALKS) - set(rec.calls)
     if missing:
         raise AssertionError(f"phase 2 never called {sorted(missing)}")
-    small = check_walk_calls(dp, rec, "n=2^18",
-                             timed={"device_probe_scan"})["device_probe_scan"]
+    check_walk_calls(dp, rec, "n=2^18")
+    # B4b: the fused scan with one inv_pos row (a per-group bail), timed
+    g1 = [c for c in rec.calls["device_probe_scan_topk"]
+          if c[0][4].shape[0] == 1]
+    if not g1:
+        raise AssertionError("phase 2 never ran a per-group bail scan")
+    small = check_scan_topk_call(dp, *g1[0], timed=True, reps=20)
     a = small["args"]
-    small["bound_ms"], small["bound_by"] = scan_bound_ms(a[0], a[1])
-    log(f"  device_probe_scan (G = 1) n=2^18 B={a[0].shape[0]}: kernel "
-        f"{small['ms']:.4f} ms, plain {small['plain_ms']:.2f} ms, bound "
-        f"{small['bound_ms']:.4f} ms ({small['bound_by']}) {tag}")
-    log(f"  K2 grid: {dp.LAST_WALK_GRID[0]} co-resident blocks x "
-        f"{dp.LAST_WALK_GRID[1]} threads")
+    Bs, Ws = a[0].shape
+    small["bound_ms"], small["bound_by"] = scan_bound_ms_pairs(
+        Bs, int(a[5]), Ws, Bs * a[6] * 2)
+    log(f"  device_probe_scan_topk (G = 1) n=2^18 B={Bs} k={a[6]}: kernel "
+        f"{small['ms']:.4f} ms (map kernel {small['map_ms']:.4f} ms), plain "
+        f"{small['plain_ms']:.2f} ms, bound {small['bound_ms']:.4f} ms "
+        f"({small['bound_by']}) {tag}")
+    log(f"  K2 last launch: {dp.LAST_WALK_GRID[0]} blocks x "
+        f"{dp.LAST_WALK_GRID[1]} threads, {dp.LAST_WALK_GRID[2]} form")
     kernels46 = scan_kernels(hs, bm, vt)
     for p in (64, 128):
         names = check_scan_kernels(kernels46, ops, torch, dev, p)
@@ -1188,7 +1479,8 @@ def main() -> int:
     log(f"  K7 flash_attention, {len(FLASH_CASES)} cases x float32/bf16 "
         f"(MHA, GQA, MQA, G = 3; causal or not; windows 8, 16, 24, 64; "
         f"valid_len 0, 1, 37, 100, 160; Sq, Sk 100, 130, 160; D 16, 20, 32, "
-        f"48, 64, 112, 128, 256) against the plain version in "
+        f"48, 64, 112, 128, 256, 320, 512; G up to 96) against the plain "
+        f"version in "
         f"float32: within tolerance (float32 2e-5, bf16 "
         f"4e-3 * max(1, |plain|)), largest differences {worst}")
     torch.cuda.synchronize()
@@ -1325,21 +1617,44 @@ def main() -> int:
                 med = statistics.median(ms)
                 timings.append((p, B, K, med, walks / n_batches,
                                 scans / n_batches, bails))
+                its = [int(t) for _, _, t in rec.iters]
                 log(f"  p={p} B={B} K={K}: {med:.4f} ms/query (median of 5 "
                     f"warm batches) {tag}; walk launches/batch "
                     f"{walks / n_batches:.0f}, scan launches/batch "
                     f"{scans / n_batches:.2f}, bailed {bails}/{B} in the "
-                    f"last batch; equal to probe_fused=False and exact vs "
-                    f"the linear scan")
+                    f"last batch; K2 iterations per launch {its}; equal to "
+                    f"probe_fused=False and exact vs the linear scan")
                 for name, calls in rec.calls.items():
                     captured.setdefault((p, B, K, name), calls)
+        # k above the fused scan's cap: the bails take the map route (the
+        # map-writing K3, then the map extraction)
+        K = 2 * dp.KCAP_MAX
+        m0 = dp.LAUNCHES["probe_scan"]
+        with Recorder(sites(dp, Recorder.WALKS), keep=1) as rec:
+            ids, sims, st = eng.knn_batch(batch, K)
+        check_scan(range(K_CHECK), ids[:K_CHECK], sims[:K_CHECK], K, 0)
+        eng.index.probe_fused = False
+        try:
+            o_ids, o_sims, _ = eng.knn_batch(batch, K)
+        finally:
+            eng.index.probe_fused = True
+        if not (np.array_equal(o_ids, ids) and np.array_equal(o_sims, sims)):
+            raise AssertionError(f"p={p} K={K}: fused walk differs from "
+                                 "probe_fused=False")
+        bails = sum(s.fell_back_to_scan for s in st.per_query)
+        log(f"  p={p} B=64 K={K}: bailed {bails}/64, "
+            f"{dp.LAUNCHES['probe_scan'] - m0} map-scan launches (two "
+            f"batches); equal to probe_fused=False and exact vs the linear "
+            f"scan")
+        for name, calls in rec.calls.items():
+            captured.setdefault((p, 64, K, name), calls)
         if p == 128:
             # where the time goes: one traced batch per shape
             out_dir = ROOT / "chiprun_out"
             profile_batch(lambda: eng.knn_batch(batch, 10), "p128_B64_K10",
-                          out_dir)
+                          out_dir, expect=("probe_walk", "probe_scan_topk"))
             profile_batch(lambda: eng.knn_batch(singles[1:2], 10),
-                          "p128_B1_K10", out_dir)
+                          "p128_B1_K10", out_dir, expect=("probe_walk",))
             span_breakdown(lambda: eng.knn_batch(batch, 10), "p128_B64_K10")
             span_breakdown(lambda: eng.knn_batch(singles[1:2], 10),
                            "p128_B1_K10")
@@ -1385,6 +1700,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = {"verify_grouped": amih_counts["verify_grouped"],
                 "probe_walk": amih_counts["probe_walk"],
+                "probe_walk_cluster": amih_counts["probe_walk_cluster"],
+                "probe_extract": amih_counts["probe_extract"],
+                "probe_scan_topk": amih_counts["probe_scan_topk"],
                 "probe_scan": amih_counts["probe_scan"],
                 "hamming_scan": scan_counts["hamming_scan"],
                 "hamming_scan_topk": scan_counts["hamming_scan_topk"],
@@ -1405,29 +1723,61 @@ def main() -> int:
     per = {}
     for (p, B, K, name), calls in sorted(captured.items(),
                                          key=lambda kv: str(kv[0])):
-        if K != 10:
+        if K != 10 and name != "device_probe_scan_multi":
             continue
         sub = Recorder([])
         sub.calls = {name: calls}
-        res = check_walk_calls(dp, sub, f"p={p} B={B}", timed={name})
+        timed = {name} if K == 10 else set()
+        res = check_walk_calls(dp, sub, f"p={p} B={B} K={K}", timed=timed)
+        W = (p + 31) // 32
         for nm, entry in res.items():
-            W = (p + 31) // 32
+            if "ms" not in entry and "ms_grid" not in entry:
+                continue
             if nm == "gather_verify_grouped":
                 q_words, _, idx, lens = entry["args"]
                 bound, by = verify_bound_ms(q_words.shape[0], idx.shape[1], W,
                                             int(lens.sum()))
+                entry.update(bound_ms=bound, bound_by=by)
+                log(f"  {nm} p={p} B={B}: kernel {entry['ms']:.4f} ms, plain "
+                    f"{entry['plain_ms']:.2f} ms, bound {bound:.4f} ms ({by}) "
+                    f"{tag}")
             elif nm.startswith("device_probe_walk"):
-                bound, by = walk_bound_ms(entry, W)
+                a = entry["args"]
+                k = _walk_tstop_k(nm, a)[1]
+                bound, by = walk_bound_ms(entry["out"], W)
+                xbound, xby = walk_bound_ms(entry["out"], W, k)
+                main = "cluster" if "ms_cluster" in entry else "grid"
+                entry.update(bound_ms=bound, bound_by=by, xbound_ms=xbound,
+                             xbound_by=xby, ms=entry[f"ms_{main}"],
+                             form=main)
+                it = max(1, entry["iters"])
+                forms = "; ".join(
+                    f"{f} form {entry[f'ms_{f}']:.4f} ms "
+                    f"({entry[f'ms_{f}'] / it:.5f} ms/iteration)"
+                    for f in ("grid", "cluster") if f"ms_{f}" in entry)
+                log(f"  {nm} p={p} B={B}: {entry['iters']} iterations, "
+                    f"{entry['done_rows']} rows done; {forms}; extraction "
+                    f"kernel after it {entry[f'extract_ms_{main}']:.4f} ms "
+                    f"(plain {entry['extract_plain_ms']:.2f} ms, bound "
+                    f"{extract_bound_ms(entry)[0]:.4f} ms); plain walk "
+                    f"{entry['plain_ms']:.2f} ms; bound {bound:.4f} ms "
+                    f"({by}), with the extraction {xbound:.4f} ms ({xby}); "
+                    f"main-path form {main} {tag}")
             else:
                 a = entry["args"]
-                q_words = a[0]
-                db_pad = a[2] if nm == "device_probe_scan_multi" else a[1]
-                bound, by = scan_bound_ms(q_words, db_pad)
-            entry.update(bound_ms=bound, bound_by=by)
+                q_words, db_pad, n_valid, k = a[0], a[3], int(a[5]), a[6]
+                Bq, Wq = q_words.shape
+                bound, by = scan_bound_ms_pairs(Bq, n_valid, Wq, Bq * k * 2)
+                mbound, mby = scan_bound_ms(q_words, db_pad)
+                entry.update(bound_ms=bound, bound_by=by, map_bound_ms=mbound,
+                             map_bound_by=mby)
+                log(f"  {nm} p={p} B={B} k={k}: fused kernel "
+                    f"{entry['ms']:.4f} ms, bound {bound:.4f} ms ({by}), plain "
+                    f"{entry['plain_ms']:.2f} ms; map kernel "
+                    f"{entry['map_ms']:.4f} ms, bound {mbound:.4f} ms ({mby}), "
+                    f"plain {entry['map_plain_ms']:.2f} ms, its extraction "
+                    f"{entry['map_extract_ms']:.4f} ms {tag}")
             per[(p, B, nm)] = entry
-            log(f"  {nm} p={p} B={B}: kernel {entry['ms']:.4f} ms, plain "
-                f"{entry['plain_ms']:.2f} ms, bound {bound:.4f} ms ({by}) "
-                f"{tag}")
 
     scan_meas = {}
     for p in (64, 128):
@@ -1470,7 +1820,23 @@ def main() -> int:
     kernels = []
     k1_main = pick(("gather_verify_grouped",))
     walk = pick(("device_probe_walk_batched",))
-    scan = pick(("device_probe_scan_multi",))
+    walk1 = pick(("device_probe_walk",))
+    scan = pick(("device_probe_scan_topk",))
+    extract = None
+    if walk:
+        e = walk[1]
+        bound, by = extract_bound_ms(e)
+        extract = {"max_abs_err": e["extract_err"],
+                   "ms": e[f"extract_ms_{e['form']}"],
+                   "plain_ms": e["extract_plain_ms"], "bound_ms": bound,
+                   "bound_by": by}
+    scan_map = None
+    if scan:
+        e = scan[1]
+        scan_map = {"max_abs_err": e["map_max_abs_err"], "ms": e["map_ms"],
+                    "plain_ms": e["map_plain_ms"],
+                    "bound_ms": e["map_bound_ms"],
+                    "bound_by": e["map_bound_by"]}
     for name, src_file, replaces, launches_n, meas in (
         ("verify_grouped", "src/repro_torch/kernels/csrc/verify_grouped.cu",
          "src/repro/kernels/verify_tuples.py:93", launches["verify_grouped"],
@@ -1478,9 +1844,20 @@ def main() -> int:
         ("probe_walk", "src/repro_torch/kernels/csrc/probe_walk.cu",
          "src/repro/kernels/device_probe.py:309", launches["probe_walk"],
          walk[1] if walk else None),
+        ("probe_walk_cluster", "src/repro_torch/kernels/csrc/probe_walk.cu",
+         "src/repro/kernels/device_probe.py:81",
+         launches["probe_walk_cluster"], walk1[1] if walk1 else None),
+        ("probe_extract", "src/repro_torch/kernels/csrc/probe_walk.cu",
+         "src/repro/core/probe_device.py:614 (the reference's host "
+         "extraction after B2/B4a; no Pallas kernel)",
+         launches["probe_extract"], extract),
+        ("probe_scan_topk", "src/repro_torch/kernels/csrc/probe_scan.cu",
+         "src/repro/kernels/device_probe.py:534 with the extraction of "
+         "src/repro/core/probe_device.py:614", launches["probe_scan_topk"],
+         scan[1] if scan else None),
         ("probe_scan", "src/repro_torch/kernels/csrc/probe_scan.cu",
          "src/repro/kernels/device_probe.py:534", launches["probe_scan"],
-         scan[1] if scan else None),
+         scan_map),
         ("hamming_scan", "src/repro_torch/kernels/csrc/hamming_scan.cu",
          "src/repro/kernels/hamming_scan.py:62", launches["hamming_scan"],
          scan_meas[128, "hamming_scan_scores"]),

@@ -20,15 +20,19 @@ batch (``kernels/device_probe.py``, ``csrc/probe_walk.cu``):
 3.  **Walk** (kernel K2): consumes the stream in tiles, expands bucket
     ranges into at most ``cap`` candidate slots per query per iteration,
     verifies them and scatter-mins each candidate's exact walk position
-    into a per-query position map. A query is done when at least k codes
-    have position <= the last *completed* step (Prop. 2 in walk-position
-    space) or the walk has passed its ``stop_below`` position. Queries the
-    walk leaves undone finish through ONE exhaustive scan (kernel K3).
+    into a per-query position map (a pooled buffer that holds POS_INF
+    between batches), listing each id it lowers. A query is done when at
+    least k codes have position <= the last *completed* step (Prop. 2 in
+    walk-position space) or the walk has passed its ``stop_below``
+    position. Queries the walk leaves undone finish through ONE exhaustive
+    scan fused with their selection (kernel K3).
 
-4.  **Extraction** (``_extract``, on the device with plain torch ops): the
-    final top-K of a query is its k smallest (position, id) pairs; only
-    those pairs cross to the host, where sims are read from the float64
-    ``sims64`` table, so results are bit-identical to the host path.
+4.  **Extraction** (``_resolve_walk``, on the device): the final top-K of
+    a query is its k smallest (position, id) pairs, read from the walk's
+    touched lists and histograms (``extract_touched``, which also resets
+    the map) or from the fused scan; only those pairs cross to the host,
+    where sims are read from the float64 ``sims64`` table, so results are
+    bit-identical to the host path. No step reads the whole map.
 
 A port of the reference's ``core/probe_device.py``: schedules, stack, CSR
 and statistics are the same arrays and the same numbers.
@@ -45,6 +49,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels import device_probe as kdp
 from ..kernels import ops
 from ..obs import trace as _obs
 from .enumeration import combination_indices
@@ -531,44 +536,54 @@ def _pow_arrays(
 
 
 # ---------------------------------------------------------------- driver
-def _extract(posmap, t_stop: np.ndarray, n: int, k: int):
-    """The k smallest (position, id) pairs of each row of the device
-    position map ``posmap`` (B, n_pad), over entries with position <=
-    ``t_stop[b]``, ordered by ``position * n + id`` as the reference's
-    host ``_extract`` orders them. Runs on the map's device and copies
-    only the selected pairs back. Returns (per-row list of (ids int64,
-    pos int64)), verified (B,) int64: the codes each row mapped.
-
-    A 32-bit top-K of each row gives its k-th smallest position; only
-    entries at or below ``min(k-th, t_stop)`` can be in the result — all
-    of them when fewer than k qualify, else every entry before the k-th
-    position plus that position's ties, of which the smallest ids win.
-    Pad columns (>= n) hold POS_INF and are never selected."""
-    B = posmap.shape[0]
-    dev = posmap.device
-    ts = torch.from_numpy(np.asarray(t_stop, dtype=np.int32)).to(dev)
-    kth = torch.topk(posmap, min(k, n), dim=1, largest=False).values[:, -1]
-    thr = torch.minimum(kth, ts)
-    rows, ids = torch.nonzero(posmap <= thr[:, None], as_tuple=True)
-    pos = posmap[rows, ids].to(torch.int64)
-    # nonzero lists (row, id) in ascending order; two stable sorts make it
-    # (row, position, id)
-    order = torch.sort(pos, stable=True).indices
-    order = order[torch.sort(rows[order], stable=True).indices]
-    verified = (posmap != int(POS_INF)).sum(dim=1)
-    host = torch.cat([rows[order], ids[order], pos[order], verified]).cpu()
-    rows, ids, pos, verified = np.split(host.numpy(), np.cumsum(
-        [order.numel()] * 3))
-    starts = np.searchsorted(rows, np.arange(B + 1))
-    out = []
+def _resolve_walk(index, handle, q_words, gid, t_stop, k, inv_pos):
+    """Wait for a walk, finish its bailed queries with ONE fused scan
+    launch, and extract every query's k smallest (position, id) pairs —
+    from the touched lists for the walk's done queries, from the scan for
+    the others — resetting the walk's map. Returns (found: per-query (ids
+    int64, pos int64), verified (B,) int64, scanned (B,) bool, the walk's
+    result dict). ``gid`` picks each query's ``inv_pos`` row."""
+    res = handle.get()
+    dev = index.device
+    B = q_words.shape[0]
+    done_rows = np.flatnonzero(res["done"])
+    undone = np.flatnonzero(~res["done"])
+    with _obs.current().span("probe.extract", cat="probe", B=B):
+        ts = ops.to_device(np.asarray(t_stop, dtype=np.int32), dev)
+        ids_w, pos_w = kdp.extract_touched(
+            res["posmap"], res["touched"], res["hist"], ts, k, done_rows,
+            res["width"])
+        handle.mark_clean()
+        parts = [ids_w, pos_w]
+        if undone.size:
+            # truncated schedules / budget bails: one exhaustive launch
+            # finishes every straggler; positions are exact, so results
+            # are unchanged
+            ids_s, pos_s, ver_s = ops.device_probe_scan_topk_launch(
+                np.ascontiguousarray(q_words[undone]), gid[undone],
+                t_stop[undone], k, inv_pos=inv_pos, csr=index.device_csr,
+                p=index.p, device=dev)
+            index.verify_launches += 1
+            parts += [ids_s, pos_s, ver_s[:, None]]
+        host = torch.cat([x.reshape(-1) for x in parts]).cpu().numpy()
+    nd, nu = done_rows.size * k, undone.size * k
+    ids = np.empty((B, k), dtype=np.int64)
+    pos = np.empty((B, k), dtype=np.int64)
+    ids[done_rows] = host[:nd].reshape(-1, k)
+    pos[done_rows] = host[nd:2 * nd].reshape(-1, k)
+    verified = res["n_touched"].astype(np.int64)
+    if undone.size:
+        ids[undone] = host[2 * nd:2 * nd + nu].reshape(-1, k)
+        pos[undone] = host[2 * nd + nu:2 * nd + 2 * nu].reshape(-1, k)
+        verified[undone] = host[2 * nd + 2 * nu:]
+    found = []
     for b in range(B):
-        lo = starts[b]
-        hi = min(starts[b + 1], lo + k)
-        if hi > lo:
-            out.append((ids[lo:hi].astype(np.int64), pos[lo:hi]))
-        else:
-            out.append((_EMPTY_I64, _EMPTY_I64))
-    return out, verified
+        take = int((ids[b] >= 0).sum())
+        found.append((ids[b, :take], pos[b, :take]) if take
+                     else (_EMPTY_I64, _EMPTY_I64))
+    scanned = np.zeros(B, dtype=bool)
+    scanned[undone] = True
+    return found, verified, scanned, res
 
 
 def _record_stats(st, sched, verified, out_pos, take, probes, retrieved,
@@ -614,15 +629,13 @@ def _t_stop(sched, stop_below, sel, count):
     ).astype(np.int32)
 
 
-def _finish(index, q_words, k, qis, scheds, zs, t_stop, posmap, probes,
+def _finish(index, q_words, k, qis, scheds, zs, found, verified, probes,
             retrieved, scanned, stats, on_done, states):
-    """Extract each query's results from the position map and record its
+    """Record each query's results (``found``: its (ids, positions)) and
     statistics: the host loop's result contract (LOCAL ids, float64
     sims)."""
     from .amih import _QueryState
 
-    with _obs.current().span("probe.extract", cat="probe", B=len(qis)):
-        found, verified = _extract(posmap, t_stop, index.device_csr["n"], k)
     for j, qi in enumerate(qis):
         sched = scheds[j]
         out_ids, out_pos = found[j]
@@ -715,34 +728,15 @@ def resolve_groups_device(index, pending: _PendingGroups, stats,
     q_words = pending.q_words
     B = q_words.shape[0]
     try:
-        res = pending.handle.get()
-        posmap = res["posmap"]
-        scanned = np.zeros(B, dtype=bool)
-        undone = np.flatnonzero(~res["done"])
-        if undone.size:
-            # truncated schedules / budget bails: one exhaustive launch
-            # finishes every straggler of every group; positions are exact,
-            # so results are unchanged
-            pm2 = ops.device_probe_scan_multi_launch(
-                np.ascontiguousarray(q_words[undone]),
-                pending.gid[undone],
-                stack=pending.stack,
-                csr=index.device_csr,
-                p=index.p,
-                device=index.device,
-            )
-            if undone.size == B:
-                posmap = pm2    # every query bailed: the scan's map is whole
-            else:
-                posmap[torch.from_numpy(undone).to(posmap.device)] = pm2
-            scanned[undone] = True
-            index.verify_launches += 1
+        found, verified, scanned, res = _resolve_walk(
+            index, pending.handle, q_words, pending.gid, pending.t_stop,
+            pending.k, pending.stack.device_arrays(index.device)["inv_pos"])
         states: List = []
         _finish(
             index, q_words, pending.k, list(range(B)),
             [pending.stack.scheds[g] for g in pending.gid], pending.zs,
-            pending.t_stop, posmap, res["probes"], res["retrieved"],
-            scanned, stats, on_done, states,
+            found, verified, res["probes"], res["retrieved"], scanned, stats,
+            on_done, states,
         )
         return states
     finally:
@@ -808,29 +802,21 @@ def _run_groups_device_grouped(
             q_sub, z_sub = _query_substrings(index, q_grp)
             pow1, pow0 = _pow_arrays(q_sub, z_sub, widths, csr["wmax"])
             t_stop = _t_stop(sched, stop_below, qis, Bg)
-        res = ops.device_probe_walk_launch(
+        handle = ops.device_probe_walk_launch(
             q_grp, q_sub.astype(np.int32), z_sub, pow1, pow0, t_stop, k,
             sched=sched, csr=csr, p=index.p, device=index.device,
         )
         index.verify_launches += 1
-        posmap = res["posmap"]
-        scanned = np.zeros(Bg, dtype=bool)
-        undone = np.flatnonzero(~res["done"])
-        if undone.size:
+        try:
             # truncated schedule or budget bail: one exhaustive launch
             # finishes the group's stragglers
-            pm2 = ops.device_probe_scan_launch(
-                q_grp[undone], sched=sched, csr=csr, p=index.p,
-                device=index.device,
-            )
-            if undone.size == Bg:
-                posmap = pm2
-            else:
-                posmap[torch.from_numpy(undone).to(posmap.device)] = pm2
-            scanned[undone] = True
-            index.verify_launches += 1
+            found, verified, scanned, res = _resolve_walk(
+                index, handle, q_grp, np.zeros(Bg, dtype=np.int32), t_stop,
+                k, sched.device_arrays(index.device)["inv_pos"][None, :])
+        finally:
+            handle.release()
         _finish(
-            index, q_words, k, qis, [sched] * Bg, zs[qis], t_stop, posmap,
+            index, q_words, k, qis, [sched] * Bg, zs[qis], found, verified,
             res["probes"], res["retrieved"], scanned, stats, on_done, states,
         )
     return states

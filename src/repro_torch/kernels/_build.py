@@ -39,7 +39,7 @@ KERNELS = {
     "verify_tuples": "verify_tuples.cu",
     "flash_attention": "flash_attention.cu",
 }
-_HEADERS = ("common.cuh", "sm90.cuh")
+_HEADERS = ("common.cuh", "sm90.cuh", "topk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -48,11 +48,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 # C entry point and argtypes, per kernel (hamming_scan_topk lives in the
-# hamming_scan library)
+# hamming_scan library, probe_scan_topk in the probe_scan library,
+# probe_extract in the probe_walk library)
 _ENTRY = {
     "verify_grouped": ("verify_grouped_launch", [_P, _P, _P]),
     "probe_scan": ("probe_scan_launch", [_P, _P, _P]),
     "probe_walk": ("probe_walk_launch", [_P, _P, _P, _P]),
+    "probe_scan_topk": ("probe_scan_topk_launch", [_P, _P, _P]),
+    "probe_extract": ("probe_extract_launch", [_P, _P, _P]),
     "hamming_scan": ("hamming_scan_launch", [_P, _P, _P]),
     "hamming_scan_topk": ("hamming_scan_topk_launch", [_P, _P, _P]),
     "blockmax_scan": ("blockmax_scan_launch", [_P, _P, _P]),

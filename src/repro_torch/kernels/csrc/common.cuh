@@ -116,3 +116,47 @@ __device__ __forceinline__ float eq3_score(int z, int r10, int r01) {
   const float den_sq = zf * (zf - r10f + static_cast<float>(r01));
   return den_sq > 0.0f ? num * __frcp_rn(__fsqrt_rn(den_sq)) : 0.0f;
 }
+
+// |q & c| over W words, the query in shared memory (16-byte rows when W is
+// a multiple of 4: one vector load per 4 words).
+template <int W>
+__device__ __forceinline__ int shared_bits_w(const int* __restrict__ q,
+                                             const int (&c)[MAX_WORDS]) {
+  int a = 0;
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int w = 0; w < W; w += 4) {
+      const int4 v = *reinterpret_cast<const int4*>(q + w);
+      a += __popc(static_cast<unsigned>(v.x & c[w])) +
+           __popc(static_cast<unsigned>(v.y & c[w + 1])) +
+           __popc(static_cast<unsigned>(v.z & c[w + 2])) +
+           __popc(static_cast<unsigned>(v.w & c[w + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+      a += __popc(static_cast<unsigned>(q[w] & c[w]));
+  }
+  return a;
+}
+
+// Row r's code (W words) into registers: 16-byte loads when W is a
+// multiple of 4.
+template <int W>
+__device__ __forceinline__ void load_code_w(const int* __restrict__ db,
+                                            long long r, int (&c)[MAX_WORDS]) {
+  const int* row = db + r * W;
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int w = 0; w < W; w += 4) {
+      const int4 v = *reinterpret_cast<const int4*>(row + w);
+      c[w] = v.x;
+      c[w + 1] = v.y;
+      c[w + 2] = v.z;
+      c[w + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < W; ++w) c[w] = row[w];
+  }
+}

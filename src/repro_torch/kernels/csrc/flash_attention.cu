@@ -28,8 +28,10 @@
 //   * GQA packing: the G = Hq / Hkv heads of kv head hk at position s are
 //     contiguous in q, so a block takes the P = 64 / G positions s0.. of
 //     one (b, hk) as up to 64 rows r = (s - s0) * G + g (G = 3: 63 rows,
-//     and row 63 is never loaded or stored). At the encoder's shape that is
-//     32 x 16 = 512 blocks of 8 positions. Causal, window and the skip of
+//     and row 63 is never loaded or stored). At the encoder's shape that
+//     is 32 x 16 = 512 blocks of 8 positions. Above 64 heads per kv head,
+//     a block takes one position and a tile of GT = 64 of its heads
+//     (ceil(G / 64) tiles; heads past G are zeros, never stored). Causal, window and the skip of
 //     key tiles use the tile's first and last positions; the masks act per
 //     element, as the interval of keys [k_lo, k_hi) each row keeps.
 //   * Copies by TMA, issued by one elected thread (thread 0): Q once (box
@@ -63,6 +65,8 @@
 //     it are neither read nor stored. D = 32 runs as D = 64 (the tiles'
 //     rows are 64 bf16 wide). A D that is not a multiple of 8 comes padded
 //     from the wrapper (TMA's row strides must be multiples of 16 bytes).
+//     Above 256, bf16 runs on the float32 kernel below, on float32 copies
+//     (no reference config has such a D).
 //   * Dynamic shared memory, with DP = max(D, 64) (FlashPlan): Q 128 DP
 //     bytes, STAGES stages of K and V 256 DP each (one stage at D = 256,
 //     two below), P_hi and P_lo 16 KiB outside K only at D <= 64, the
@@ -71,7 +75,9 @@
 //
 // float32 (flash_attention_kernel, as in the first port but for guarded
 // loads and stores past a head dim below the tile's width): one
-// block of FA_THREADS threads per (b, h, tile of QT query rows); a loop
+// block of FA_THREADS threads per (b, h, tile of QT query rows) and, above
+// D = 256, per 256-wide slice of the output, whose scores accumulate over
+// 256-column chunks of q and k; a loop
 // over kv tiles of KT keys stages k and v in shared memory as float32,
 // computes the QT x KT scores as dot products, each query row's TPR
 // threads update the row's running (m, l) and their D / TPR accumulator
@@ -102,12 +108,18 @@ struct FlashArgs {
 // Query rows (QT) and keys (KT) per tile: the float32 tiles of q, k, v and
 // the scores stay under the 48 KB of static shared memory a block may use.
 // A head dim D routes to the smallest width here that is >= D; the
-// columns past D are zeros in shared memory and are never stored.
+// columns past D are zeros in shared memory and are never stored. Above
+// 256 the wide instantiation (FA_WIDE) takes any D: it stages q and k
+// FA_DC columns at a time, accumulating each score over the chunks, and
+// each block writes one FA_DC-wide slice of the output (blockIdx.y).
+#define FA_WIDE 512
+#define FA_DC 256
 template <int D> struct FlashTile;
 template <> struct FlashTile<32> { static constexpr int QT = 16, KT = 32; };
 template <> struct FlashTile<64> { static constexpr int QT = 16, KT = 32; };
 template <> struct FlashTile<128> { static constexpr int QT = 16, KT = 32; };
 template <> struct FlashTile<256> { static constexpr int QT = 8, KT = 16; };
+template <> struct FlashTile<FA_WIDE> { static constexpr int QT = 8, KT = 16; };
 
 __device__ __forceinline__ float fa_load(const float* p, long long i) {
   return p[i];
@@ -147,17 +159,20 @@ __device__ __forceinline__ bool fa_tile_live(const FlashArgs& a, int q_first,
 template <typename T, int D>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const FlashArgs a) {
-  // D: the tile width; a.D <= D: the row width of q, k, v and out
+  // D: the tile width; a.D <= D: the row width of q, k, v and out (any
+  // a.D for the wide instantiation)
+  constexpr bool WIDE = D == FA_WIDE;
+  constexpr int DC = WIDE ? FA_DC : D;  // columns staged; the output slice
   constexpr int QT = FlashTile<D>::QT;
   constexpr int KT = FlashTile<D>::KT;
   constexpr int TPR = FA_THREADS / QT;  // threads per query row
-  constexpr int ACC = D / TPR;          // accumulator columns per thread
+  constexpr int ACC = DC / TPR;         // accumulator columns per thread
   constexpr int PAIRS = QT * KT / FA_THREADS;
-  static_assert(32 % TPR == 0 && D % TPR == 0, "tile shape");
+  static_assert(32 % TPR == 0 && DC % TPR == 0, "tile shape");
   static_assert(PAIRS * FA_THREADS == QT * KT, "tile shape");
-  __shared__ float qs[QT][D + 1];
-  __shared__ float ks[KT][D + 1];
-  __shared__ float vs[KT][D];
+  __shared__ float qs[QT][DC + 1];
+  __shared__ float ks[KT][DC + 1];
+  __shared__ float vs[KT][DC];
   __shared__ float ps[QT][KT + 1];
 
   const T* q = static_cast<const T*>(a.q);
@@ -173,15 +188,21 @@ flash_attention_kernel(const FlashArgs a) {
   const int hk = h / (a.Hq / a.Hkv);
   const float scale = a.scale;
   const int Dm = a.D;
+  const int n_chunks = WIDE ? (Dm + DC - 1) / DC : 1;
+  const int v0 = static_cast<int>(blockIdx.y) * DC;  // this block's slice
 
-  for (int e = t; e < QT * D; e += FA_THREADS) {
-    const int r = e / D, d = e % D;
-    const int s = q0 + r;
-    qs[r][d] = s < a.Sq && d < Dm
-        ? fa_load(q, (static_cast<long long>(b) * a.Sq + s) * a.Hq * Dm +
-                         static_cast<long long>(h) * Dm + d)
-        : 0.0f;
-  }
+  // q's columns [c0, c0 + DC) of the tile's rows
+  auto load_q = [&](int c0) {
+    for (int e = t; e < QT * DC; e += FA_THREADS) {
+      const int r = e / DC, d = e % DC;
+      const int s = q0 + r;
+      qs[r][d] = s < a.Sq && c0 + d < Dm
+          ? fa_load(q, (static_cast<long long>(b) * a.Sq + s) * a.Hq * Dm +
+                           static_cast<long long>(h) * Dm + c0 + d)
+          : 0.0f;
+    }
+  };
+  if (!WIDE) load_q(0);
 
   // this thread's query row and accumulator columns c + TPR * i
   const int row = t / TPR;
@@ -197,31 +218,46 @@ flash_attention_kernel(const FlashArgs a) {
     if (!fa_tile_live(a, q0, last_q, k0, KT)) continue;
 
     __syncthreads();  // the last tile's readers are done with ks, vs, ps
-    for (int e = t; e < KT * D; e += FA_THREADS) {
-      const int j = e / D, d = e % D;
+    for (int e = t; e < KT * DC; e += FA_THREADS) {
+      const int j = e / DC, d = e % DC;
       const int s = k0 + j;
-      float kx = 0.0f, vx = 0.0f;  // zeros past Sk: p = 0 meets no NaN
-      if (s < a.Sk && d < Dm) {
-        const long long off =
-            (static_cast<long long>(b) * a.Sk + s) * a.Hkv * Dm +
-            static_cast<long long>(hk) * Dm + d;
-        kx = fa_load(k, off);
-        vx = fa_load(v, off);
-      }
-      ks[j][d] = kx;
+      float vx = 0.0f;  // zeros past Sk: p = 0 meets no NaN
+      if (s < a.Sk && v0 + d < Dm)
+        vx = fa_load(v, (static_cast<long long>(b) * a.Sk + s) * a.Hkv * Dm +
+                            static_cast<long long>(hk) * Dm + v0 + d);
       vs[j][d] = vx;
     }
-    __syncthreads();
-
-    // scores: pair e -> (row e / KT, key e % KT)
+    // scores: pair e -> (row e / KT, key e % KT), summed over the chunks
+    float dot[PAIRS];
+#pragma unroll
+    for (int i = 0; i < PAIRS; ++i) dot[i] = 0.0f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int c0 = ch * DC;
+      if (ch > 0) __syncthreads();  // the last chunk's readers are done
+      if (WIDE) load_q(c0);
+      for (int e = t; e < KT * DC; e += FA_THREADS) {
+        const int j = e / DC, d = e % DC;
+        const int s = k0 + j;
+        float kx = 0.0f;
+        if (s < a.Sk && c0 + d < Dm)
+          kx = fa_load(k, (static_cast<long long>(b) * a.Sk + s) * a.Hkv *
+                              Dm + static_cast<long long>(hk) * Dm + c0 + d);
+        ks[j][d] = kx;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < PAIRS; ++i) {
+        const int e = t + i * FA_THREADS;
+        const int r = e / KT, j = e % KT;
+#pragma unroll 8
+        for (int d = 0; d < DC; ++d) dot[i] = fmaf(qs[r][d], ks[j][d], dot[i]);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < PAIRS; ++i) {
       const int e = t + i * FA_THREADS;
       const int r = e / KT, j = e % KT;
-      float dot = 0.0f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(qs[r][d], ks[j][d], dot);
-      ps[r][j] = fa_keep(a, q0 + r, k0 + j) ? dot * scale : FA_NEG_INF;
+      ps[r][j] = fa_keep(a, q0 + r, k0 + j) ? dot[i] * scale : FA_NEG_INF;
     }
     __syncthreads();
 
@@ -263,10 +299,11 @@ flash_attention_kernel(const FlashArgs a) {
     const float lm = fmaxf(l, 1e-30f);
     const long long base =
         (static_cast<long long>(b) * a.Sq + s) * a.Hq * Dm +
-        static_cast<long long>(h) * Dm;
+        static_cast<long long>(h) * Dm + v0;
 #pragma unroll
     for (int i = 0; i < ACC; ++i)
-      if (c + TPR * i < Dm) fa_store(out, base + c + TPR * i, acc[i] / lm);
+      if (v0 + c + TPR * i < Dm)
+        fa_store(out, base + c + TPR * i, acc[i] / lm);
   }
 }
 
@@ -300,7 +337,9 @@ template <int D> struct FlashPlan {
 struct FlashTmaArgs {
   Sm90TensorMap q, k, v, out;
   FlashArgs a;
-  int P;  // query positions per tile (its rows: P * G <= 64)
+  int GT;    // q heads per tile: min(G, 64)
+  int n_gt;  // tiles of GT heads per kv head: ceil(G / GT)
+  int P;     // query positions per tile (its rows: P * GT <= 64)
 };
 
 // Offset in a 64-row tile of the bf16 pair at (row r, even column c).
@@ -355,13 +394,14 @@ flash_attention_bf16_kernel(const __grid_constant__ FlashTmaArgs p) {
   uint64_t* kfull = bars + 1;
   uint64_t* vfull = bars + 1 + STAGES;
 
-  const int G = a.Hq / a.Hkv;
+  const int GT = p.GT;
   const int ntiles = (a.Sq + p.P - 1) / p.P;
   // the longest tiles (last positions, causal) first
   const int s0 = (ntiles - 1 - static_cast<int>(blockIdx.x % ntiles)) * p.P;
-  const int bh = static_cast<int>(blockIdx.x / ntiles);
-  const int hk = bh % a.Hkv;
-  const int b = bh / a.Hkv;
+  const int rest = static_cast<int>(blockIdx.x / ntiles);
+  const int g0 = (rest % p.n_gt) * GT;  // the tile's first head of hk's G
+  const int hk = (rest / p.n_gt) % a.Hkv;
+  const int b = rest / p.n_gt / a.Hkv;
   const int q_last = min(s0 + p.P, a.Sq) - 1;
   const int t = threadIdx.x;
 
@@ -375,10 +415,10 @@ flash_attention_bf16_kernel(const __grid_constant__ FlashTmaArgs p) {
       sm90_mbar_init(&vfull[st], 1);
     }
     sm90_mbar_init_fence();
-    sm90_mbar_arrive_expect_tx(qbar, NDB * p.P * G * 128);
+    sm90_mbar_arrive_expect_tx(qbar, NDB * p.P * GT * 128);
     for (int db = 0; db < NDB; ++db)
-      sm90_tma_load(smem + Plan::Q + db * FA_ATOM, &p.q, qbar, 64 * db, 0, hk,
-                    s0, b);
+      sm90_tma_load(smem + Plan::Q + db * FA_ATOM, &p.q, qbar, 64 * db, g0,
+                    hk, s0, b);
     for (int st = 0; st < STAGES && k_load < a.Sk; ++st) {
       fa_load_kv<D>(p, smem + Plan::KV + 2 * st * Plan::TILE, &kfull[st],
                     &vfull[st], hk, k_load, b);
@@ -387,15 +427,16 @@ flash_attention_bf16_kernel(const __grid_constant__ FlashTmaArgs p) {
   }
   __syncthreads();  // the mbarriers are initialised
 
-  // rows m of the fragment, m and m + 8; row m is head hk * G + m % G at
-  // position s0 + m / G (rows past P * G are neither loaded nor stored)
+  // rows m of the fragment, m and m + 8; row m is head hk * G + g0 +
+  // m % GT at position s0 + m / GT (rows past P * GT, and heads past G,
+  // are neither loaded nor stored)
   const int w = t >> 5, l = t & 31;
   const int m_row[2] = {16 * w + (l >> 2), 16 * w + (l >> 2) + 8};
   // the masks keep the keys [k_lo, k_hi) of each row (fa_keep's terms)
   int k_lo[2], k_hi[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int qp = s0 + m_row[h] / G;
+    const int qp = s0 + m_row[h] / GT;
     k_hi[h] = a.Sk;
     k_lo[h] = 0;
     if (a.valid_len >= 0) {
@@ -543,7 +584,8 @@ flash_attention_bf16_kernel(const __grid_constant__ FlashTmaArgs p) {
   __syncthreads();
   if (t == 0) {
     for (int db = 0; db < NDB; ++db)
-      sm90_tma_store(&p.out, stage_out + db * FA_ATOM, 64 * db, 0, hk, s0, b);
+      sm90_tma_store(&p.out, stage_out + db * FA_ATOM, 64 * db, g0, hk, s0,
+                     b);
     sm90_tma_store_wait();
   }
 }
@@ -552,11 +594,12 @@ template <int D>
 static int flash_launch_f32(FlashArgs& a, cudaStream_t stream) {
   const long long nq = (a.Sq + FlashTile<D>::QT - 1) / FlashTile<D>::QT;
   const long long blocks = static_cast<long long>(a.B) * a.Hq * nq;
-  if (blocks > 0x7FFFFFFFLL) return 1;  // cudaErrorInvalidValue
+  const int slices = D == FA_WIDE ? (a.D + FA_DC - 1) / FA_DC : 1;
+  if (blocks > 0x7FFFFFFFLL || slices > 65535) return 1;
   void* args[] = {&a};
   void (*kernel)(FlashArgs) = flash_attention_kernel<float, D>;
   cudaError_t e = cudaLaunchKernel(kernel,
-                                   dim3(static_cast<unsigned>(blocks)),
+                                   dim3(static_cast<unsigned>(blocks), slices),
                                    dim3(FA_THREADS), args, 0, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
@@ -565,17 +608,20 @@ static int flash_launch_f32(FlashArgs& a, cudaStream_t stream) {
 // Tensor maps of the bf16 kernel, over the row width a.D (TMA needs every
 // row stride, a.D * 2 bytes, to be a multiple of 16: the wrapper pads a
 // width that is not a multiple of 8). q and out as (a.D, G, Hkv, Sq, B)
-// with a box of (64, G, 1, P, 1): a tile of P positions x G heads, the rows
-// r = s * G + g in order; k and v as (a.D, Hkv, Sk, B, 1) with a box of
-// (64, 1, 64, 1, 1). Columns past a.D (up to the instantiation's D) and
-// positions past Sq or Sk are zeros when loaded and never stored.
+// with a box of (64, GT, 1, P, 1): a tile of P positions x GT heads (GT =
+// min(G, 64); above 64 heads a kv head's G heads take n_gt tiles of one
+// position each), the rows r = s * GT + g in order; k and v as
+// (a.D, Hkv, Sk, B, 1) with a box of (64, 1, 64, 1, 1). Columns past a.D
+// (up to the instantiation's D), heads past G and positions past Sq or Sk
+// are zeros when loaded and never stored.
 template <int D>
 static int flash_launch_bf16(FlashArgs& a, cudaStream_t stream) {
   const int G = a.Hq / a.Hkv;
-  if (G > FA_ROWS) return 1;
   FlashTmaArgs p;
   p.a = a;
-  p.P = FA_ROWS / G;
+  p.GT = G < FA_ROWS ? G : FA_ROWS;
+  p.n_gt = (G + p.GT - 1) / p.GT;
+  p.P = FA_ROWS / p.GT;
   const uint64_t e = 2;  // bytes of a bf16
   const uint64_t Dm = static_cast<uint64_t>(a.D);
   const uint64_t q_dims[5] = {Dm, static_cast<uint64_t>(G),
@@ -584,7 +630,7 @@ static int flash_launch_bf16(FlashArgs& a, cudaStream_t stream) {
                               static_cast<uint64_t>(a.B)};
   const uint64_t q_strides[4] = {Dm * e, G * Dm * e, a.Hq * Dm * e,
                                  static_cast<uint64_t>(a.Sq) * a.Hq * Dm * e};
-  const uint32_t q_box[5] = {64, static_cast<uint32_t>(G), 1,
+  const uint32_t q_box[5] = {64, static_cast<uint32_t>(p.GT), 1,
                              static_cast<uint32_t>(p.P), 1};
   const uint64_t kv_dims[5] = {Dm, static_cast<uint64_t>(a.Hkv),
                                static_cast<uint64_t>(a.Sk),
@@ -601,7 +647,7 @@ static int flash_launch_bf16(FlashArgs& a, cudaStream_t stream) {
   int r = sm90_map_bf16(&p.q, a.q, q_dims, q_strides, q_box);
   if (r == 0) r = sm90_map_bf16(&p.out, a.out, q_dims, q_strides, q_box);
   if (r != 0) return r;
-  const long long blocks = static_cast<long long>(a.B) * a.Hkv *
+  const long long blocks = static_cast<long long>(a.B) * a.Hkv * p.n_gt *
                            ((a.Sq + p.P - 1) / p.P);
   if (blocks > 0x7FFFFFFFLL) return 1;
   void (*kernel)(FlashTmaArgs) = flash_attention_bf16_kernel<D>;
@@ -628,7 +674,8 @@ static int flash_dispatch(FlashArgs& a, int bf16, cudaStream_t st) {
                               : flash_launch_f32<128>(a, st);
   if (a.D <= 256) return bf16 ? flash_launch_bf16<256>(a, st)
                               : flash_launch_f32<256>(a, st);
-  return 1;  // cudaErrorInvalidValue
+  return bf16 ? 1 : flash_launch_f32<FA_WIDE>(a, st);  // bf16: the wrapper
+                                                        // widens it
 }
 
 // ptr: q, k, v, out (device addresses; bf16 ones 16-byte aligned);

@@ -52,13 +52,11 @@
 //     reads few keys), and never more than keep pass 1's keys within 1%
 //     of the (B, N) float32 scores.
 #include "common.cuh"
+#include "topk.cuh"
 
 #define SCAN_THREADS 256
 #define SCAN_QTILE 8
-#define TOPK_THREADS 256
 #define TOPK_QMAX 16  // queries a pass-1 block takes at most
-#define MERGE_RPT 8   // keys a pass-2 thread offers per step
-#define KEY_NONE (-0x7FFFFFFFFFFFFFFFLL - 1)  // below every candidate key
 
 struct HammingArgs {
   const int* q;   // (B, W) packed queries
@@ -104,58 +102,6 @@ struct TopkArgs {
   int nv;
 };
 
-// Sort each of the nseg segments of L keys (L a power of 2) descending.
-__device__ void topk_sort_desc(long long* buf, int nseg, int L) {
-  const int half = nseg * L / 2;
-  for (int size = 2; size <= L; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int e = threadIdx.x; e < half; e += blockDim.x) {
-        // e -> the pair (i, i + stride), i with the bit `stride` clear
-        const int i = ((e & ~(stride - 1)) << 1) | (e & (stride - 1));
-        const int j = i + stride;
-        const long long x = buf[i];
-        const long long y = buf[j];
-        const bool desc = ((i & (L - 1)) & size) == 0;
-        if (desc ? x < y : x > y) {
-          buf[i] = y;
-          buf[j] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Fold every query's staged keys into its best k: sort each segment
-// [best k | staged | KEY_NONE...], keep the first k, clear the rest and
-// set the threshold to the k-th key. Every thread of the block calls it.
-__device__ void topk_merge(long long* buf, long long* th, int* cnt, int nseg,
-                           int L, int k) {
-  const int t = threadIdx.x;
-  if (!__syncthreads_or(t < nseg && cnt[t] > 0)) return;
-  topk_sort_desc(buf, nseg, L);
-  for (int e = t; e < nseg * L; e += blockDim.x)
-    if ((e & (L - 1)) >= k) buf[e] = KEY_NONE;
-  if (t < nseg) {
-    th[t] = buf[t * L + k - 1];
-    cnt[t] = 0;
-  }
-  __syncthreads();
-}
-
-// Offer `key` to segment s: nothing to do if it does not beat the
-// threshold, else stage it. Returns false if the staging area was full
-// (the caller offers the key again after the next merge).
-__device__ __forceinline__ bool topk_offer(long long* buf, const long long* th,
-                                           int* cnt, int s, int L, int k,
-                                           long long key) {
-  if (key <= th[s]) return true;
-  const int pos = atomicAdd(&cnt[s], 1);
-  if (pos >= L - k) return false;
-  buf[s * L + k + pos] = key;
-  return true;
-}
-
 // Byte offsets of pass 1's shared memory for QT queries of W words:
 // keys (QT x L int64), query words (QR x W), thresholds (QT int64),
 // staged counts (QT), 1/sqrt(z y) (QR x (32 W + 1) float); the total.
@@ -179,50 +125,6 @@ __host__ __device__ inline TopkSmem topk_smem(int QT, int L, int W) {
   m.inv = topk_up16(m.cnt + static_cast<long long>(QT) * 4);
   m.bytes = m.inv + QR * (32 * W + 1) * 4;
   return m;
-}
-
-// |q & c| over W words, the query in shared memory (16-byte rows when W is
-// a multiple of 4: one vector load per 4 words).
-template <int W>
-__device__ __forceinline__ int shared_bits_w(const int* __restrict__ q,
-                                             const int (&c)[MAX_WORDS]) {
-  int a = 0;
-  if constexpr (W % 4 == 0) {
-#pragma unroll
-    for (int w = 0; w < W; w += 4) {
-      const int4 v = *reinterpret_cast<const int4*>(q + w);
-      a += __popc(static_cast<unsigned>(v.x & c[w])) +
-           __popc(static_cast<unsigned>(v.y & c[w + 1])) +
-           __popc(static_cast<unsigned>(v.z & c[w + 2])) +
-           __popc(static_cast<unsigned>(v.w & c[w + 3]));
-    }
-  } else {
-#pragma unroll
-    for (int w = 0; w < W; ++w)
-      a += __popc(static_cast<unsigned>(q[w] & c[w]));
-  }
-  return a;
-}
-
-// Row r's code (W words) into registers: 16-byte loads when W is a
-// multiple of 4.
-template <int W>
-__device__ __forceinline__ void load_code_w(const int* __restrict__ db,
-                                            long long r, int (&c)[MAX_WORDS]) {
-  const int* row = db + r * W;
-  if constexpr (W % 4 == 0) {
-#pragma unroll
-    for (int w = 0; w < W; w += 4) {
-      const int4 v = *reinterpret_cast<const int4*>(row + w);
-      c[w] = v.x;
-      c[w + 1] = v.y;
-      c[w + 2] = v.z;
-      c[w + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int w = 0; w < W; ++w) c[w] = row[w];
-  }
 }
 
 // Score one code row (in registers, id `id`) against the block's QMAX
@@ -389,72 +291,15 @@ scan_topk_tiles_kernel(const TopkArgs a) {
   }
 }
 
-// Pass 2, one block per query: the best k of its n_tiles x k keys. Every
-// tile's k keys are at least its k-th key, so the largest of those is a
-// lower bound of the k-th key overall and starts the threshold; each
-// thread then offers MERGE_RPT keys a step, loaded a step ahead.
+// Pass 2, one block per query: the best k of its n_tiles x k keys
+// (topk_select), decoded to sims and ids.
 __global__ void __launch_bounds__(TOPK_THREADS)
 scan_topk_merge_kernel(const TopkArgs a) {
   DYNAMIC_SMEM(smem);
-  const int t = threadIdx.x;
-  long long* buf = reinterpret_cast<long long*>(smem);  // L
-  long long* red = buf + a.L;                           // TOPK_THREADS
-  long long* th = red + TOPK_THREADS;
-  int* cnt = reinterpret_cast<int*>(th + 1);
-  const long long m = static_cast<long long>(a.n_tiles) * a.k;
-  const long long* src = a.part + blockIdx.x * m;
-  for (int e = t; e < a.L; e += blockDim.x) buf[e] = KEY_NONE;
-  long long lb = KEY_NONE;
-  for (int i = t; i < a.n_tiles; i += blockDim.x) {
-    const long long x = src[static_cast<long long>(i) * a.k + a.k - 1];
-    lb = x > lb ? x : lb;
-  }
-  red[t] = lb;
-  __syncthreads();
-  for (int off = TOPK_THREADS / 2; off > 0; off >>= 1) {
-    if (t < off && red[t + off] > red[t]) red[t] = red[t + off];
-    __syncthreads();
-  }
-  if (t == 0) {
-    th[0] = red[0] == KEY_NONE ? KEY_NONE : red[0] - 1;  // keys >= the bound
-    cnt[0] = 0;
-  }
-  __syncthreads();
-
-  // keys base + t + j * TOPK_THREADS of a step, loaded a step ahead
-  constexpr int STEP = TOPK_THREADS * MERGE_RPT;
-  long long next[MERGE_RPT];
-#pragma unroll
-  for (int j = 0; j < MERGE_RPT; ++j) {
-    const long long e = t + j * TOPK_THREADS;
-    next[j] = e < m ? src[e] : KEY_NONE;
-  }
-  for (long long base = 0; base < m; base += STEP) {
-    long long key[MERGE_RPT];
-#pragma unroll
-    for (int j = 0; j < MERGE_RPT; ++j) {
-      key[j] = next[j];
-      const long long e = base + STEP + t + j * TOPK_THREADS;
-      next[j] = e < m ? src[e] : KEY_NONE;
-    }
-    unsigned failed = 0;
-#pragma unroll
-    for (int j = 0; j < MERGE_RPT; ++j)
-      if (!topk_offer(buf, th, cnt, 0, a.L, a.k, key[j])) failed |= 1u << j;
-    while (__syncthreads_or(failed != 0)) {
-      topk_merge(buf, th, cnt, 1, a.L, a.k);
-      unsigned again = 0;
-#pragma unroll
-      for (int j = 0; j < MERGE_RPT; ++j)
-        if (((failed >> j) & 1u) &&
-            !topk_offer(buf, th, cnt, 0, a.L, a.k, key[j]))
-          again |= 1u << j;
-      failed = again;
-    }
-  }
-  topk_merge(buf, th, cnt, 1, a.L, a.k);
-
-  for (int j = t; j < a.k; j += blockDim.x) {
+  const long long* buf = topk_select(
+      a.part + blockIdx.x * static_cast<long long>(a.n_tiles) * a.k,
+      a.n_tiles, a.k, a.L, smem);
+  for (int j = threadIdx.x; j < a.k; j += blockDim.x) {
     const long long key = buf[j];
     const long long o = static_cast<long long>(blockIdx.x) * a.k + j;
     if (key == KEY_NONE) {
@@ -564,7 +409,7 @@ extern "C" int hamming_scan_topk_launch(const long long* ptr, const int* sc,
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int smem2 = a.L * 8 + TOPK_THREADS * 8 + 16;
+  const int smem2 = topk_select_smem(a.L);
   e = cudaFuncSetAttribute(scan_topk_merge_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -8,8 +8,10 @@ and sliding-window masks come from absolute positions, ``valid_len``
 keeps only key slots [0, valid_len) (with ``window``, only the trailing
 ``window`` of them), query head h reads kv head h // (Hq // Hkv), and a
 row with no key left is 0. On a CUDA tensor it launches the CUDA kernel
-(``csrc/flash_attention.cu``: bf16 on the tensor cores with ``wgmma``,
-float32 on the CUDA cores); on a CPU tensor it runs
+(``csrc/flash_attention.cu``: bf16 on the tensor cores with ``wgmma`` for
+head dims up to 256, float32 on the CUDA cores, and any head dim above
+256 on the CUDA cores in 256-column chunks, bf16 through float32 copies);
+on a CPU tensor it runs
 ``flash_attention_plain``, the same online softmax over kv tiles written
 out in torch ops. The two sum in different orders, so they agree to
 float32 rounding, not bit for bit (bf16: P enters PV as two bf16 terms,
@@ -33,7 +35,8 @@ NEG_INF = -1e30
 # accumulates over kv tiles of this many keys, as the Pallas kernel does
 KV_BLK = 1024
 # the kernel's instantiation widths: a head dim D runs on the smallest one
-# >= D, with zero columns past D (routing only; every 1 <= D <= 256 runs)
+# >= D, with zero columns past D (routing only); above the last, the wide
+# float32 instantiation takes any D in 256-column chunks
 SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
 MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -106,18 +109,19 @@ def _check(q, k, v):
 
 def _launch(lib, q, k, v, out, causal: bool, window: int, valid_len,
             stream: int) -> None:
-    B, Sq, Hq, D = q.shape
-    _, Sk, Hkv, _ = k.shape
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {D}: the kernel takes 1 <= D <= "
-                         f"{MAX_HEAD_DIM}")
+    D = q.shape[-1]
+    if D < 1:
+        raise ValueError(f"head dim {D}: the kernel takes D >= 1")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes {_DTYPES}, got {q.dtype}")
-    dev = q.device
     if q.dtype == torch.bfloat16:
-        if Hq // Hkv > 64:
-            raise ValueError(f"{Hq // Hkv} query heads per kv head: the bf16 "
-                             "kernel packs at most 64 into a tile")
+        if D > MAX_HEAD_DIM:
+            # the wide float32 kernel on float32 copies, rounded back once
+            outf = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+            _launch_rows(lib, q.float(), k.float(), v.float(), outf, D,
+                         causal, window, valid_len, stream)
+            out.copy_(outf)
+            return
         if D % 8:
             # TMA's row strides must be multiples of 16 bytes: run on copies
             # zero-padded to a multiple of 8 columns, with the scale of D

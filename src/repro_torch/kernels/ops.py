@@ -52,8 +52,7 @@ __all__ = [
     "PendingKeys",
     "PendingWalk",
     "device_key",
-    "device_probe_scan_launch",
-    "device_probe_scan_multi_launch",
+    "device_probe_scan_topk_launch",
     "device_probe_walk_batched_launch",
     "device_probe_walk_launch",
     "merge_topk",
@@ -197,17 +196,110 @@ def _walk_shape(tile, cap, check_every):
     return tile, cap, check_every
 
 
+# Recycled (B_pad, n_pad) position-map buffers per (device, batch bucket,
+# index size): sustained serving reuses one buffer instead of allocating
+# 4 * B_pad * n_pad bytes per batch. A buffer holds POS_INF everywhere
+# between batches: it is filled once, when allocated, and each batch's
+# extraction resets the entries its walk lowered (``PendingWalk.mark_clean``).
+# A buffer whose batch failed before that is dropped, never recycled. Small
+# cap so odd one-off batch shapes don't pin device memory.
+_POSMAP_POOL: dict = {}
+_POSMAP_POOL_MAX = 2
+
+
+def _take_posmap(device, Bp: int, n_pad: int):
+    key = (device_key(device), Bp, n_pad)
+    with _LOCK:
+        pool = _POSMAP_POOL.get(key)
+        if pool:
+            return key, pool.pop()
+    return key, torch.full((Bp, n_pad), device_probe.POS_INF,
+                           dtype=torch.int32, device=device)
+
+
+def _recycle_posmap(key, buf) -> None:
+    with _LOCK:
+        pool = _POSMAP_POOL.setdefault(key, [])
+        if len(pool) < _POSMAP_POOL_MAX:
+            pool.append(buf)
+
+
+class PendingWalk:
+    """Handle for an in-flight walk launch on a pooled position map.
+    ``get()`` waits for the kernel and returns the result dict: device
+    tensors ``posmap`` (B, n_pad), ``touched`` (B, lt) and ``hist``
+    (B, H), host arrays ``probes``, ``retrieved``, ``done``, ``n_touched``
+    (the verified codes) and ``cursor``, ``iters``, and ``width`` (the
+    entries of the lists the walk wrote: iters x cap). ``release()`` hands the
+    buffer back to the pool if ``mark_clean()`` said the batch reset every
+    entry it lowered, and drops it otherwise."""
+
+    __slots__ = ("_out", "_B", "_cap", "_pool_key", "_buf", "_res", "_clean")
+
+    def __init__(self, out, B: int, cap: int, pool_key, buf):
+        self._out = out
+        self._B = B
+        self._cap = cap
+        self._pool_key = pool_key
+        self._buf = buf
+        self._res = None
+        self._clean = False
+
+    def get(self) -> dict:
+        if self._res is None:
+            tr = _obs.current()
+            t0 = _obs.now_us() if tr.enabled else 0.0
+            (posmap, probes, retrieved, done, cursor, iters, touched,
+             n_touched, hist) = self._out
+            B = self._B
+            small = [probes[:B], retrieved[:B], done[:B].to(torch.int32),
+                     n_touched[:B], torch.as_tensor(cursor).reshape(-1)
+                     .to(probes.device, torch.int32),
+                     torch.as_tensor(iters).reshape(-1)
+                     .to(probes.device, torch.int32)]
+            host = torch.cat(small).cpu().numpy()    # one copy, one wait
+            pr, rt, dn, nt, rest = np.split(host, [B, 2 * B, 3 * B, 4 * B])
+            self._res = {
+                "posmap": posmap[:B],
+                "touched": touched[:B],
+                "hist": hist[:B],
+                "probes": pr,
+                "retrieved": rt,
+                "done": dn.astype(bool),
+                "n_touched": nt,
+                "cursor": rest[:-1],
+                "iters": int(rest[-1]),
+                "width": int(rest[-1]) * self._cap,
+            }
+            self._out = None
+            if tr.enabled:
+                tr.record("launch.device_probe.resolve", t0, _obs.now_us(),
+                          cat="kernel", device=self._pool_key[0])
+        return self._res
+
+    def mark_clean(self) -> None:
+        """The batch's extraction reset every entry the walk lowered."""
+        self._clean = True
+
+    def release(self) -> None:
+        """Return the position-map buffer to the pool if it is clean, else
+        drop it (idempotent)."""
+        buf, self._buf = self._buf, None
+        self._res = None
+        if buf is not None and self._clean:
+            _recycle_posmap(self._pool_key, buf)
+
+
 def device_probe_walk_launch(
     q_words, q_sub, z_sub, pow1, pow0, t_stop, k: int, *, sched, csr, p: int,
     device, tile: Optional[int] = None, cap: Optional[int] = None,
     check_every: Optional[int] = None, walk_budget: Optional[int] = None,
-) -> dict:
-    """One z-group's fused walk launch. Per-call arrays are padded to a
-    power-of-two batch and placed on ``device``. ``walk_budget`` defaults
-    to ``max(4, n_pad // (4 * cap))``: past that many iterations the walk
-    has spent a quarter of an exhaustive scan. Returns {"posmap" (B,
-    n_pad) device tensor, "probes", "retrieved", "done" (B,) host arrays,
-    "cursor" int, "iters" int}."""
+) -> PendingWalk:
+    """One z-group's fused walk launch on a pooled position map. Per-call
+    arrays are padded to a power-of-two batch and placed on ``device``.
+    ``walk_budget`` defaults to ``max(4, n_pad // (4 * cap))``: past that
+    many iterations the walk has spent a quarter of an exhaustive scan.
+    Returns a ``PendingWalk``."""
     from ..core.probe_device import KMAX
 
     tile, cap, check_every = _walk_shape(tile, cap, check_every)
@@ -224,117 +316,20 @@ def device_probe_walk_launch(
         )
     ]
     bundle = sched.device_arrays(device)
+    pool_key, buf = _take_posmap(device, Bp, int(csr["n_pad"]))
     dkey = device_key(device)
     _bump_launch("device_probe", dkey)
     with _obs.current().span("launch.device_probe", cat="kernel",
                              device=dkey, B=B):
-        posmap, probes, retrieved, done, cursor, iters = (
-            device_probe.device_probe_walk(
-                *per_call, k, sched.s_len, walk_budget,
-                bundle["tbl"], bundle["step_ext"], bundle["idx1"],
-                bundle["idx0"], bundle["maxi1"], bundle["maxi0"],
-                bundle["widths"], csr["offsets"], csr["ids"], csr["db_pad"],
-                bundle["inv_pos"], p=p, tile=tile, cap=cap, kmax=KMAX,
-                check_every=check_every,
-            )
+        out = device_probe.device_probe_walk(
+            *per_call, k, sched.s_len, walk_budget,
+            bundle["tbl"], bundle["step_ext"], bundle["idx1"],
+            bundle["idx0"], bundle["maxi1"], bundle["maxi0"],
+            bundle["widths"], csr["offsets"], csr["ids"], csr["db_pad"],
+            bundle["inv_pos"], p=p, tile=tile, cap=cap, kmax=KMAX,
+            check_every=check_every, posmap_in=buf,
         )
-        return {
-            "posmap": posmap[:B],
-            "probes": probes[:B].cpu().numpy(),
-            "retrieved": retrieved[:B].cpu().numpy(),
-            "done": done[:B].cpu().numpy(),
-            "cursor": int(cursor),
-            "iters": int(iters),
-        }
-
-
-def device_probe_scan_launch(q_words, *, sched, csr, p: int, device,
-                             chunk: int = 2048):
-    """One exhaustive verify launch over every stored code for one
-    z-group's queries: a (B, n_pad) device position map."""
-    qh = np.ascontiguousarray(np.asarray(q_words))
-    B = qh.shape[0]
-    Bp = pad_bucket(B, minimum=1)
-    n_pad = csr["n_pad"]
-    chunk = min(pad_bucket(chunk, minimum=8), n_pad)
-    bundle = sched.device_arrays(device)
-    dkey = device_key(device)
-    _bump_launch("device_probe_scan", dkey)
-    with _obs.current().span("launch.device_probe_scan", cat="kernel",
-                             device=dkey, B=B):
-        pm = device_probe.device_probe_scan(
-            to_device(_pad_rows(qh, Bp), device), csr["db_pad"],
-            bundle["inv_pos"], csr["n"], p=p, chunk=chunk,
-        )
-        return pm[:B]
-
-
-# Recycled (B_pad, n_pad) position-map buffers per (device, batch bucket,
-# index size): sustained serving reuses one buffer instead of allocating
-# 4 * B_pad * n_pad bytes per batch. The walk overwrites a buffer whole, so
-# a recycled one needs no clearing. Small cap so odd one-off batch shapes
-# don't pin device memory.
-_POSMAP_POOL: dict = {}
-_POSMAP_POOL_MAX = 2
-
-
-def _take_posmap(device, Bp: int, n_pad: int):
-    key = (device_key(device), Bp, n_pad)
-    with _LOCK:
-        pool = _POSMAP_POOL.get(key)
-        if pool:
-            return key, pool.pop()
-    return key, torch.empty((Bp, n_pad), dtype=torch.int32, device=device)
-
-
-def _recycle_posmap(key, buf) -> None:
-    with _LOCK:
-        pool = _POSMAP_POOL.setdefault(key, [])
-        if len(pool) < _POSMAP_POOL_MAX:
-            pool.append(buf)
-
-
-class PendingWalk:
-    """Handle for an in-flight batch-walk launch. ``get()`` waits for the
-    kernel and returns the result dict; its ``posmap`` is a (B, n_pad) view
-    of the pooled buffer, valid until ``release()`` hands the buffer back
-    to the pool."""
-
-    __slots__ = ("_out", "_B", "_pool_key", "_buf", "_res")
-
-    def __init__(self, out, B: int, pool_key, buf):
-        self._out = out
-        self._B = B
-        self._pool_key = pool_key
-        self._buf = buf
-        self._res = None
-
-    def get(self) -> dict:
-        if self._res is None:
-            tr = _obs.current()
-            t0 = _obs.now_us() if tr.enabled else 0.0
-            posmap, probes, retrieved, done, cursor, iters = self._out
-            B = self._B
-            self._res = {
-                "posmap": posmap[:B],
-                "probes": probes[:B].cpu().numpy(),
-                "retrieved": retrieved[:B].cpu().numpy(),
-                "done": done[:B].cpu().numpy(),
-                "cursor": cursor.cpu().numpy(),
-                "iters": int(iters),
-            }
-            self._out = None
-            if tr.enabled:
-                tr.record("launch.device_probe.resolve", t0, _obs.now_us(),
-                          cat="kernel", device=self._pool_key[0])
-        return self._res
-
-    def release(self) -> None:
-        """Return the position-map buffer to the pool (idempotent)."""
-        buf, self._buf = self._buf, None
-        if buf is not None:
-            self._res = None
-            _recycle_posmap(self._pool_key, buf)
+    return PendingWalk(out, B, cap, pool_key, buf)
 
 
 def device_probe_walk_batched_launch(
@@ -343,7 +338,8 @@ def device_probe_walk_batched_launch(
     check_every: Optional[int] = None, walk_budget: Optional[int] = None,
 ) -> PendingWalk:
     """The fused cross-z-group walk: ONE launch for the whole batch, every
-    z-group included, dispatched without waiting.
+    z-group included, on a pooled position map, dispatched without
+    waiting.
 
     ``walk_budget`` defaults to ``max(4, n_pad // (4 * cap * B_pad))``: an
     iteration probes a tile for every query, so it costs about B_pad times
@@ -382,31 +378,53 @@ def device_probe_walk_batched_launch(
     if tr.enabled:
         tr.record("launch.device_probe.dispatch", t0, _obs.now_us(),
                   cat="kernel", device=dkey, B=B)
-    return PendingWalk(out, B, pool_key, buf)
+    return PendingWalk(out, B, cap, pool_key, buf)
 
 
-def device_probe_scan_multi_launch(q_words, gid, *, stack, csr, p: int,
-                                   device, chunk: int = 2048):
-    """One exhaustive verify launch across every bailed z-group, with a
-    per-query ``gid`` row into the stack's inverse-position tables: a
-    (B, n_pad) device position map."""
+def device_probe_scan_topk_launch(q_words, gid, t_stop, k: int, *, inv_pos,
+                                  csr, p: int, device, chunk: int = 2048):
+    """One exhaustive scan launch for the bailed queries of a batch, with a
+    per-query ``gid`` row into ``inv_pos`` (G, pp2): each query's k
+    smallest (position, id) pairs within its ``t_stop`` and its verified
+    count, (ids, pos) int32 (B, k) and verified (B,) int32 device tensors
+    (``device_probe.device_probe_scan_topk``). On the card a k above the
+    fused kernel's ``KCAP_MAX`` takes the map route instead, chosen by
+    shape: the map-writing scan kernel, then ``extract_map``'s torch
+    ops."""
     qh = np.ascontiguousarray(np.asarray(q_words))
     B = qh.shape[0]
     Bp = pad_bucket(B, minimum=1)
     n_pad = csr["n_pad"]
     chunk = min(pad_bucket(chunk, minimum=8), n_pad)
-    bundle = stack.device_arrays(device)
+    q_t = to_device(_pad_rows(qh, Bp), device)
+    g_t = to_device(_pad_rows(np.asarray(gid, dtype=np.int32), Bp), device)
+    ts_t = to_device(_pad_rows(np.asarray(t_stop, dtype=np.int32), Bp, -1),
+                     device)
     dkey = device_key(device)
     _bump_launch("device_probe_scan", dkey)
     with _obs.current().span("launch.device_probe_scan", cat="kernel",
-                             device=dkey, B=B):
-        pm = device_probe.device_probe_scan_multi(
-            to_device(_pad_rows(qh, Bp), device),
-            to_device(_pad_rows(np.asarray(gid, dtype=np.int32), Bp),
-                      device),
-            csr["db_pad"], bundle["inv_pos"], csr["n"], p=p, chunk=chunk,
-        )
-        return pm[:B]
+                             device=dkey, B=B, k=k):
+        if q_t.device.type != "cuda":
+            ids, pos, ver = device_probe.device_probe_scan_topk(
+                q_t, g_t, ts_t, csr["db_pad"], inv_pos, csr["n"], k, p=p,
+                chunk=chunk)
+        elif k > device_probe.KCAP_MAX:
+            pm = device_probe.device_probe_scan_multi(
+                q_t, g_t, csr["db_pad"], inv_pos, csr["n"], p=p, chunk=chunk)
+            ids, pos, ver = device_probe.extract_map(pm, ts_t, k)
+        else:
+            # the kernel's plan from the host's copies (no wait for the card)
+            z = _pad_rows(np.bitwise_count(qh.view(np.uint32)).sum(axis=1),
+                          Bp)
+            n_sm = torch.cuda.get_device_properties(
+                q_t.device).multi_processor_count
+            plan = device_probe.scan_topk_plan(
+                _pad_rows(np.asarray(gid, dtype=np.int32), Bp), z, k,
+                int(csr["n"]), n_sm, qh.shape[1], p)
+            ids, pos, ver = device_probe.device_probe_scan_topk(
+                q_t, g_t, ts_t, csr["db_pad"], inv_pos, csr["n"], k, p=p,
+                chunk=chunk, plan=plan)
+        return ids[:B], pos[:B], ver[:B]
 
 
 # ------------------------------------------------------------ linear scan

@@ -5,7 +5,8 @@
 // barrier over the block, warp shuffles exchange through a per-warp buffer
 // between two warp barriers, atomics are the compiler's, and the float
 // math functions (expf, fmaf, fmaxf, sqrt) are <cmath>'s. A cooperative
-// launch runs as ONE block, so a grid sync is a block barrier and
+// launch, and a cluster launch (cudaLaunchKernelEx), runs as ONE block, so
+// a grid or cluster sync is a block barrier and
 // __shared__ (made `static`) is block memory; an ordinary launch runs its
 // blocks one after another. A launch's dynamic shared memory is a
 // 1024-byte-aligned buffer per block (filled with 0xFF bytes, so a read of
@@ -48,7 +49,24 @@ enum {
   cudaErrorCooperativeLaunchTooLarge = 720,
   cudaDevAttrMultiProcessorCount = 16
 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 12
+};
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct {
+    struct { unsigned x, y, z; } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
 
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
@@ -185,4 +203,17 @@ template <class A>
 cudaError_t cudaLaunchKernel(void (*f)(A), dim3 g, dim3 b, void** args,
                              size_t smem, cudaStream_t) {
   return emu_run(f, g, b, args, smem);
+}
+template <class A>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, void (*)(A),
+                                           const cudaLaunchConfig_t*) {
+  *n = 1;
+  return 0;
+}
+template <class A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*f)(A),
+                               A a) {
+  void* args[] = {&a};
+  return emu_run(f, dim3(1), dim3(kEmuCoopThreads), args,
+                 cfg->dynamicSmemBytes);
 }

@@ -12,6 +12,7 @@ from dataclasses import asdict
 
 import numpy as np
 import pytest
+from _hypothesis_compat import given, settings, st
 
 from repro.core import pack_bits
 from repro.core.amih import AMIHIndex as RIndex
@@ -22,6 +23,9 @@ from repro_torch.core.amih import AMIHIndex as TIndex
 from repro_torch.core.amih import AMIHStats as TStats
 from repro_torch.core.engine import AMIHEngine
 from repro_torch.core.engine import make_engine as t_make
+from repro_torch.kernels import device_probe as t_kdp
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels.device_probe import POS_INF
 from repro_torch.obs.metrics import REGISTRY as T_REG
 
 _COUNTERS = ("launches.device_probe", "launches.device_probe_scan",
@@ -190,3 +194,81 @@ def test_layers_not_ported_raise():
     assert isinstance(eng, AMIHEngine)
     with pytest.raises(NotImplementedError, match="A7"):
         eng.index.knn_batch(db[:1], 3, overlap=object())
+
+
+# ------------------------------------------ AMIH extraction (slice 6)
+@settings(max_examples=10, deadline=None)
+@given(p=st.sampled_from([32, 64, 128]), seed=st.integers(0, 1 << 16),
+       k=st.sampled_from([1, 6, 40]), cap=st.sampled_from([1 << 16, 128]),
+       B=st.sampled_from([1, 5, 16]))
+def test_device_walk_extraction_equals_reference(p, seed, k, cap, B):
+    """The whole ``knn_batch`` through the touched-list extraction and the
+    fused scan's plain version against the reference: ids, float64 sims,
+    every per-query stat and the launch counters, with truncated schedules
+    (``probe_stream_cap``) that send queries to the scan."""
+    db, q = _data(300, p, B, seed=seed)
+    kw = dict(probe_backend="device", query_cache_size=0,
+              probe_stream_cap=cap)
+    _run_both(r_make("amih", db, p, **kw),
+              t_make("amih", db, p, device="cpu", **kw), q, k)
+
+
+def test_mixed_bails_ties_and_k_above_the_fused_cap():
+    """One batch with queries the walk finishes (a cluster of 200 codes one
+    bit from theirs, each code twice: ties at the k-th position) and far
+    queries it sends to the scan under a truncated schedule, at k = 1, 9
+    and above the fused scan's cap (the card's map route), against the
+    reference."""
+    p, n = 32, 1300
+    db, q = _data(n, p, 12, seed=41, near=False)
+    rng = np.random.default_rng(3)
+    flips = rng.integers(0, p, size=(200, 1)).astype(np.uint32)
+    db[:200] = db[0] ^ (np.uint32(1) << flips)
+    db[200:400] = db[:200]
+    q[:6] = db[0]
+    kw = dict(probe_backend="device", query_cache_size=0,
+              probe_stream_cap=96)
+    r_eng = r_make("amih", db, p, **kw)
+    t_eng = t_make("amih", db, p, device="cpu", **kw)
+    for k in (1, 9, 1100):
+        _, _, st_ = _run_both(r_eng, t_eng, q, k)
+        bails = [s.fell_back_to_scan for s in st_.per_query]
+        assert bails[6:] == [True] * 6
+        assert bails[:6] == [k > 9] * 6
+
+
+def _pooled_maps():
+    return [buf for bufs in t_ops._POSMAP_POOL.values() for buf in bufs]
+
+
+def test_pooled_maps_hold_pos_inf_after_batches_bails_and_errors(
+        monkeypatch):
+    """A pooled position map is filled once, when allocated, and holds
+    POS_INF everywhere after a batch, after a batch with bails, and after a
+    batch that raised (whose map is dropped, not recycled)."""
+    p, n = 64, 600
+    db, q = _data(n, p, 16, seed=5)
+    monkeypatch.setattr(t_ops, "_POSMAP_POOL", {})
+    seen = set()
+    for cap in (1 << 16, 96):                   # no bails, then bails
+        eng = t_make("amih", db, p, device="cpu", query_cache_size=0,
+                     probe_stream_cap=cap)
+        for _ in range(2):
+            _, _, st_ = eng.knn_batch(q, 7)
+            bufs = _pooled_maps()
+            assert bufs and all(bool((b == POS_INF).all()) for b in bufs)
+            seen.update(id(b) for b in bufs)
+        if cap == 96:
+            assert any(s.fell_back_to_scan for s in st_.per_query)
+    assert len(seen) == 1          # one (16, n_pad) map, reused unfilled
+    held = _pooled_maps()
+
+    def broken(*a, **kw):
+        raise RuntimeError("extraction failed")
+
+    monkeypatch.setattr(t_kdp, "extract_touched", broken)
+    with pytest.raises(RuntimeError, match="extraction failed"):
+        eng.knn_batch(q, 7)
+    bufs = _pooled_maps()
+    assert len(bufs) == len(held) - 1           # the batch's map is gone
+    assert all(bool((b == POS_INF).all()) for b in bufs)

@@ -78,21 +78,19 @@ def test_emulated_grouped_verify_equals_plain(emu, p):
                        vt.gather_verify_grouped_plain(q, db, idx, lens, p))
 
 
-@pytest.fixture(scope="module")
-def walk_calls():
-    """Operands of the walk and scan launches of a CPU device-path run
-    (mixed z-groups, a truncated stream so queries bail to the scan)."""
-    p, n = 64, 3000
-    db = synthetic_binary_codes_packed(n, p, seed=3)
-    q = synthetic_queries_packed(db, p, 12, seed=4)
+def _record_calls(db, q, p, **engine_kw):
+    """Operands of the walk and scan launches of a CPU device-path run: a
+    fused batch, then per-group walks over its first four queries."""
     calls = {}
     names = ("device_probe_walk_batched", "device_probe_walk",
-             "device_probe_scan_multi", "device_probe_scan")
+             "device_probe_scan_topk")
     orig = {nm: getattr(dp, nm) for nm in names}
 
     def keep(nm):
         def f(*a, **kw):
             calls.setdefault(nm, (a, kw))
+            if nm == "device_probe_scan_topk":    # fused, then per group
+                calls.setdefault("scan_calls", []).append((a, kw))
             return orig[nm](*a, **kw)
         return f
 
@@ -100,32 +98,87 @@ def walk_calls():
         setattr(dp, nm, keep(nm))
     try:
         eng = make_engine("amih", db, p, m=4, probe_backend="device",
-                          probe_stream_cap=256, query_cache_size=0,
-                          device="cpu")
-        eng.knn_batch(q, 8)                   # fused walk + scan
+                          query_cache_size=0, device="cpu", **engine_kw)
+        eng.knn_batch(q, 8)                   # fused walk (+ scan)
         eng.index.probe_fused = False
-        eng.knn_batch(q[:4], 8)               # per-group walks + scans
+        eng.knn_batch(q[:4], 8)               # per-group walks (+ scans)
     finally:
         for nm in names:
             setattr(dp, nm, orig[nm])
     return calls
 
 
-@pytest.mark.parametrize("check_every", [1, 3])
-def test_emulated_batched_walk_equals_plain(emu, walk_calls, check_every):
+@pytest.fixture(scope="module")
+def walk_calls():
+    """Mixed z-groups, a truncated stream so queries bail to the scan."""
+    p, n = 64, 3000
+    db = synthetic_binary_codes_packed(n, p, seed=3)
+    q = synthetic_queries_packed(db, p, 12, seed=4)
+    return _record_calls(db, q, p, probe_stream_cap=256)
+
+
+@pytest.fixture(scope="module")
+def dup_walk_calls():
+    """30 distinct codes, each stored 100 times: buckets of 100 and more
+    ids, over a small cap."""
+    p, n = 64, 3000
+    base = synthetic_binary_codes_packed(30, p, seed=5)
+    db = base[np.arange(n) % 30]
+    q = synthetic_queries_packed(base, p, 12, seed=6)
+    return _record_calls(db, q, p)
+
+
+def _inf_map(like):
+    return torch.full_like(like, dp.POS_INF)
+
+
+def _batched_walk(emu, walk_calls, check_every, form, cap=None):
     a, kw = walk_calls["device_probe_walk_batched"]
-    kw = dict(kw, check_every=check_every)
-    want = dp.device_probe_walk_batched_plain(torch.empty_like(a[0]), *a[1:],
-                                              **kw)
-    got = dp._walk_kernel(emu["probe_walk"], torch.empty_like(a[0]), *a[1:],
-                          **kw, stream=0)
-    _same(got, want)
+    kw = dict(kw, check_every=check_every, cap=cap or kw["cap"])
+    want = dp.device_probe_walk_batched_plain(_inf_map(a[0]), *a[1:], **kw)
+    pm = _inf_map(a[0])
+    got = dp._walk_kernel(emu["probe_walk"], pm, *a[1:], **kw, stream=0,
+                          form=form)
+    assert dp.LAST_WALK_GRID[2] == form
+    _same(dp.walk_canonical(got, kw["cap"]),
+          dp.walk_canonical(want, kw["cap"]))
+    # the lists name exactly the lowered entries, and the histograms count
+    # their positions
+    touched, n_touched, hist = got[6:]
+    touched = touched[:, :int(got[5]) * kw["cap"]]
+    for b in range(pm.shape[0]):
+        ids = touched[b][touched[b] >= 0].long()
+        assert int(n_touched[b]) == ids.numel()
+        assert torch.equal(ids.sort().values,
+                           torch.nonzero(pm[b] != dp.POS_INF).flatten())
+        assert torch.equal(torch.bincount(pm[b, ids].long(),
+                                          minlength=hist.shape[1]),
+                           hist[b].long())
+    _extractions(emu, pm, got, want, a[7], kw["cap"])
 
 
-@pytest.mark.parametrize("check_every", [1, 3])
-def test_emulated_group_walk_equals_plain(emu, walk_calls, check_every):
+def _extractions(emu, pm, got, want, t_stop, cap):
+    """The extraction kernel after the kernel walk against the plain
+    extraction after the plain walk, on the rows the walk finished, at
+    k = 1, 8 and 300; both maps all POS_INF after."""
+    done = torch.nonzero(want[3]).flatten().numpy()
+    width = int(want[5]) * cap
+    for k in (1, 8, 300):
+        pm_k, pm_p = pm.clone(), want[0].clone()
+        ids, pos = dp._extract_kernel(emu["probe_walk"], pm_k, got[6],
+                                      got[8], t_stop, k, done, width,
+                                      stream=0)
+        w_ids, w_pos = dp.extract_touched_plain(pm_p, want[6], want[8],
+                                                t_stop, k, done, width)
+        _same((ids, pos), (w_ids, w_pos))
+        assert bool((pm_k == dp.POS_INF).all())
+        assert bool((pm_p == dp.POS_INF).all())
+
+
+def _group_walk(emu, walk_calls, check_every, form, cap=None):
     a, kw = walk_calls["device_probe_walk"]
-    kw = dict(kw, check_every=check_every)
+    kw = dict(kw, check_every=check_every, cap=cap or kw["cap"])
+    kw.pop("posmap_in", None)          # the engine's pooled map
     (q_words, q_sub, z_sub, pow1, pow0, t_stop, k, s_len, budget, tbl,
      step_ext, idx1, idx0, maxi1, maxi0, widths, offsets, ids, db_pad,
      inv_pos) = a
@@ -133,31 +186,149 @@ def test_emulated_group_walk_equals_plain(emu, walk_calls, check_every):
     B, P = q_words.shape[0], tbl.shape[0]
     i32 = torch.int32
     got = dp._walk_kernel(
-        emu["probe_walk"], torch.empty((B, db_pad.shape[0]), dtype=i32),
+        emu["probe_walk"],
+        torch.full((B, db_pad.shape[0]), dp.POS_INF, dtype=i32),
         q_words, q_sub, z_sub, pow1, pow0, torch.zeros(B, dtype=i32), t_stop,
         k, budget, torch.zeros(1, dtype=i32),
         torch.full((1,), s_len, dtype=i32), tbl, step_ext[:P], idx1, idx0,
         maxi1, maxi0, widths, offsets, ids, db_pad, inv_pos[None, :], **kw,
-        stream=0,
+        stream=0, form=form,
     )
-    _same(got[:4], want[:4])
+    assert dp.LAST_WALK_GRID[2] == form
+    _extractions(emu, got[0], got, want, t_stop, kw["cap"])
+    got = dp.walk_canonical(got, kw["cap"])
+    want = dp.walk_canonical(want, kw["cap"])
+    _same(got[:4] + got[6:], want[:4] + want[6:])
     assert int(got[4][0]) == want[4] and int(got[5][0]) == want[5]
 
 
+@pytest.mark.parametrize("check_every", [1, 3])
+def test_emulated_batched_walk_equals_plain(emu, walk_calls, check_every):
+    _batched_walk(emu, walk_calls, check_every, "grid")
+
+
+@pytest.mark.parametrize("check_every", [1, 3])
+def test_emulated_group_walk_equals_plain(emu, walk_calls, check_every):
+    _group_walk(emu, walk_calls, check_every, "grid")
+
+
+@pytest.mark.parametrize("check_every", [1, 3])
+def test_emulated_cluster_walk_equals_plain(emu, walk_calls, check_every):
+    """K2's cluster form (one cluster, the tile in each block's shared
+    memory) on the same operands as the grid form's one-group walk; a
+    launch it cannot take (several z-groups) is refused."""
+    _group_walk(emu, walk_calls, check_every, "cluster")
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _batched_walk(emu, walk_calls, check_every, "cluster")
+
+
+@pytest.mark.parametrize("form", ["grid", "cluster"])
+def test_emulated_walks_with_buckets_over_cap(emu, dup_walk_calls, form):
+    """The walks with cap = 8 candidate slots an iteration over buckets of
+    100 and more ids (both in the grid form, the one-group walk in the
+    cluster form): entry 0 is taken in parts (the resume offset), and the
+    walk runs into its budget."""
+    for ce in (1, 3):
+        if form == "grid":
+            _batched_walk(emu, dup_walk_calls, ce, form, cap=8)
+        _group_walk(emu, dup_walk_calls, ce, form, cap=8)
+
+
 def test_emulated_scans_equal_plain(emu, walk_calls):
-    a, kw = walk_calls["device_probe_scan_multi"]
-    q_words, gid, db_pad, inv_pos, n_valid = a
+    """The map-writing K3 on the bail scans' operands: the cross-group
+    call (an inv_pos row per query) and a per-group one (one row)."""
+    (multi, kw), (group, _) = walk_calls["scan_calls"][:2]
+    assert group[4].shape[0] == 1 and multi[4].shape[0] > 1
+    q_words, gid, _, db_pad, inv_pos, n_valid, _ = multi
     out = torch.empty((q_words.shape[0], db_pad.shape[0]), dtype=torch.int32)
     dp._scan_kernel(emu["probe_scan"], q_words, gid, db_pad, inv_pos,
                     n_valid, out, p=kw["p"], stream=0)
-    assert torch.equal(out, dp.device_probe_scan_multi_plain(*a, **kw))
-    a, kw = walk_calls["device_probe_scan"]
-    q_words, db_pad, inv_pos, n_valid = a
+    assert torch.equal(out, dp.device_probe_scan_multi_plain(
+        q_words, gid, db_pad, inv_pos, n_valid, **kw))
+    q_words, _, _, db_pad, inv_pos, n_valid, _ = group
     out = torch.empty((q_words.shape[0], db_pad.shape[0]), dtype=torch.int32)
     dp._scan_kernel(emu["probe_scan"], q_words,
                     torch.zeros(q_words.shape[0], dtype=torch.int32), db_pad,
-                    inv_pos[None, :], n_valid, out, p=kw["p"], stream=0)
-    assert torch.equal(out, dp.device_probe_scan_plain(*a, **kw))
+                    inv_pos, n_valid, out, p=kw["p"], stream=0)
+    assert torch.equal(out, dp.device_probe_scan_plain(
+        q_words, db_pad, inv_pos[0], n_valid, **kw))
+
+
+def _fused_scan_case(p, n, B, seed, dup):
+    """Operands of one fused-scan call from a CPU device-path index:
+    queries of mixed popcount (several share one), their stack rows and
+    t_stop (full walks, short ones that leave fewer than k, and -1);
+    ``dup`` repeats five codes, so positions tie across every row tile."""
+    from repro_torch.core.probe_device import get_schedule_stack
+
+    db = synthetic_binary_codes_packed(n, p, seed=seed, n_clusters=4)
+    if dup:
+        db = db[np.arange(n) % 5]
+    q = synthetic_queries_packed(db, p, B, seed=seed + 1)
+    q[1] = q[0]
+    eng = make_engine("amih", db, p, probe_backend="device",
+                      query_cache_size=0, device="cpu")
+    index = eng.index
+    csr = index.device_csr
+    stack = get_schedule_stack(p, index.m, csr["widths"],
+                               index.probe_stream_cap)
+    zs = np.bitwise_count(q).sum(axis=1)
+    gid = np.array([stack.row(int(z)) for z in zs], dtype=np.int32)
+    L = np.array([stack.scheds[g].L for g in gid])
+    t_stop = (L - 1).astype(np.int32)
+    t_stop[2 % B] = 3                       # fewer than k within t_stop
+    t_stop[-1] = -1 if B > 3 else t_stop[-1]
+    bundle = stack.device_arrays("cpu")
+    return (torch.from_numpy(q.view(np.int32)), torch.from_numpy(gid),
+            torch.from_numpy(t_stop), csr["db_pad"], bundle["inv_pos"],
+            csr["n"])
+
+
+# (p, n, B, k, tile_rows, dup): p in {32, 64, 128}, row tiles of one and of
+# several steps, segments of one query and of several (the QT cut at
+# k = 1024), k = 1 and at the kernel's cap, ties across tiles
+FUSED_SCAN_CASES = [
+    (32, 1500, 6, 1, 256, False),
+    (64, 2000, 9, 10, 512, True),
+    (128, 1200, 5, 100, 256, True),
+    (64, 2600, 7, 1024, 1024, True),
+    (128, 900, 3, 7, 768, False),
+]
+
+
+@pytest.mark.parametrize("case", FUSED_SCAN_CASES)
+def test_emulated_fused_scan_equals_plain(emu, case):
+    """The fused K3 (both passes) against its plain version (the map scan,
+    then ``extract_map``) by equality: ids, positions, verified."""
+    p, n, B, k, tile_rows, dup = case
+    a = _fused_scan_case(p, n, B, seed=p + B, dup=dup)
+    got = dp._scan_topk_kernel(emu["probe_scan"], *a, k, p=p, stream=0,
+                               n_sm=1, tile_rows=tile_rows)
+    want = dp.device_probe_scan_topk_plain(*a, k, p=p, chunk=256 if
+                                           a[3].shape[0] % 256 == 0 else 8)
+    _same(got, want)
+    plan = dp.scan_topk_plan(*(x.numpy() for x in (a[1],)),
+                             np.bitwise_count(a[0].numpy().view(np.uint32))
+                             .sum(axis=1), k, int(a[5]), 1, a[0].shape[1], p,
+                             tile_rows)
+    assert plan["n_tiles"] > 1
+    if B > 3:                  # segments that hold queries of several z
+        assert plan["tabs"].shape[0] > plan["segs"].shape[0]
+    if dup:                                   # ties cross the k-th slot
+        pm = dp.device_probe_scan_multi_plain(*a[:2], *a[3:6], p=p, chunk=8)
+        kth = want[1][0, -1]
+        assert int(kth) >= 0 and int((pm[0] == kth).sum()) > int(
+            (want[1][0] == kth).sum())
+
+
+def test_emulated_fused_scan_on_the_engines_bails(emu, walk_calls):
+    """The fused K3 on the engine's own bail calls (cross-group and per
+    group), with a row tile that cuts the codes into several tiles."""
+    for a, kw in walk_calls["scan_calls"]:
+        k = a[6]
+        got = dp._scan_topk_kernel(emu["probe_scan"], *a[:6], k, p=kw["p"],
+                                   stream=0, n_sm=1, tile_rows=512)
+        _same(got, dp.device_probe_scan_topk_plain(*a, **kw))
 
 
 def _scan_operands(p, B, N, seed):
@@ -263,6 +434,12 @@ FLASH_CASES = [
     (1, 37, 50, 4, 1, 48, False, 16, None),
     (2, 3, 60, 4, 2, 112, False, 8, 37),
     (1, 9, 30, 2, 1, 20, True, 0, None),
+    # head dims above 256 (the wide kernel: 256-column chunks of the
+    # scores, 256-wide output slices) and 96 q heads per kv head (two head
+    # tiles of the bf16 path)
+    (1, 20, 30, 2, 1, 320, True, 0, None),
+    (2, 3, 40, 2, 2, 512, False, 8, 37),
+    (1, 5, 40, 96, 1, 64, True, 0, None),
 ]
 
 
@@ -383,17 +560,14 @@ def test_emulated_wgmma_tile_matches_matmul(emu, trans_b, step):
 
 
 def test_flash_attention_bf16_operands_the_kernel_cannot_take_raise():
-    """The bf16 kernel's TMA copies need 16-byte aligned operands and at
-    most 64 q heads per kv head: anything else raises before a launch."""
+    """The bf16 kernel's TMA copies need 16-byte aligned operands:
+    anything else raises before a launch."""
     flat = torch.zeros(4 * 2 * 64 + 1, dtype=torch.bfloat16)
     q = flat[1:].view(1, 4, 2, 64)                 # 2 bytes off 16
     kv = torch.zeros((1, 4, 1, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte boundary"):
         fa._launch(None, q, kv, kv, torch.empty(q.shape, dtype=q.dtype), True,
                    0, None, 0)
-    q = torch.zeros((1, 4, 65, 64), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="at most 64"):
-        fa._launch(None, q, kv, kv, torch.empty_like(q), True, 0, None, 0)
 
 
 class _RecordLaunch:
@@ -425,12 +599,19 @@ def test_flash_attention_takes_every_head_dim_up_to_256(D, dtype):
                             int(dtype == torch.bfloat16), 1, 0, -1, D]]
 
 
-def test_flash_attention_refuses_head_dims_above_256():
-    q = torch.zeros((1, 4, 2, 257))
-    with pytest.raises(ValueError, match="head dim 257: the kernel takes "
-                                         "1 <= D <= 256"):
-        fa._launch(_RecordLaunch(), q, q[:, :, :1], q[:, :, :1],
-                   torch.empty_like(q), True, 0, None, 0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_runs_head_dims_above_256(dtype):
+    """D > 256 and more than 64 q heads per kv head reach the kernel: the
+    wide route gets the true D (bf16 on float32 copies), and 96 heads over
+    one kv head launch as they are."""
+    for D, Hq in ((257, 2), (512, 2), (64, 96)):
+        q = torch.zeros((1, 4, Hq, D), dtype=dtype)
+        kv = torch.zeros((1, 4, 1, D), dtype=dtype)
+        lib = _RecordLaunch()
+        fa._launch(lib, q, kv, kv, torch.empty_like(q), True, 0, None, 0)
+        wide = D > fa.MAX_HEAD_DIM
+        bf16 = int(dtype == torch.bfloat16 and not wide)
+        assert lib.scalars == [[1, 4, 4, Hq, 1, D, bf16, 1, 0, -1, D]]
 
 
 def test_ptxas_report_reads_registers_smem_and_spills(monkeypatch):

@@ -66,58 +66,103 @@ def test_device_path_on_card_equals_plain_on_cpu(cuda, p, m, B):
                       query_cache_size=0)
     cpu = make_engine("amih", db, p, m=m, probe_backend="device",
                       query_cache_size=0, device="cpu")
-    walks = dp.LAUNCHES["probe_walk"]
+    walks = dp.LAUNCHES["probe_walk"] + dp.LAUNCHES["probe_walk_cluster"]
     gi, gs, gst = gpu.knn_batch(q, k)
-    assert dp.LAUNCHES["probe_walk"] == walks + 1
+    assert (dp.LAUNCHES["probe_walk"] + dp.LAUNCHES["probe_walk_cluster"]
+            == walks + 1)
     ci, cs, cst = cpu.knn_batch(q, k)
     assert np.array_equal(gi, ci) and np.array_equal(gs, cs)
     assert gst.per_query == cst.per_query
 
 
+def _same_walk(got, want, cap):
+    for g, w in zip(dp.walk_canonical(got, cap), dp.walk_canonical(want, cap)):
+        assert torch.equal(torch.as_tensor(g).cpu().reshape(-1).long(),
+                           torch.as_tensor(w).cpu().reshape(-1).long())
+
+
+def _same_scan(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
 @pytest.mark.parametrize("check_every", [1, 3])
 def test_walk_and_scan_kernels_equal_plain(cuda, check_every):
+    """The batched walk (the cooperative grid; the cluster form refuses a
+    launch of several z-groups), the extraction kernel after it, the map
+    scan and the fused scan on a batch's operands, against their plain
+    versions on the card."""
     p, m, n, B, k = 64, 4, 30_000, 24, 7
     db = synthetic_binary_codes_packed(n, p, seed=5)
     q = synthetic_queries_packed(db, p, B, seed=6)
     eng = make_engine("amih", db, p, m=m, probe_backend="device",
                       query_cache_size=0, probe_stream_cap=512)
     seen = {}
-    orig = dp.device_probe_walk_batched
+    names = ("device_probe_walk_batched", "device_probe_scan_topk")
+    orig = {name: getattr(dp, name) for name in names}
 
-    def keep(*a, **kw):
-        seen["walk"] = (a, kw)
-        return orig(*a, **kw)
+    def keeper(name):
+        def keep(*a, **kw):
+            seen.setdefault(name, (a, kw))
+            return orig[name](*a, **kw)
+        return keep
 
-    dp.device_probe_walk_batched = keep
+    for name in names:
+        setattr(dp, name, keeper(name))
     try:
         eng.knn_batch(q, k)
     finally:
-        dp.device_probe_walk_batched = orig
-    a, kw = seen["walk"]
+        for name, fn in orig.items():
+            setattr(dp, name, fn)
+    assert set(seen) == set(names)
+    a, kw = seen["device_probe_walk_batched"]
     kw = dict(kw, check_every=check_every)
-    got = dp.device_probe_walk_batched(torch.empty_like(a[0]), *a[1:], **kw)
-    want = dp.device_probe_walk_batched_plain(torch.empty_like(a[0]), *a[1:],
-                                              **kw)
-    for g, w in zip(got, want):                 # iters: (1,) vs int
-        assert torch.equal(torch.as_tensor(g).cpu().reshape(-1).long(),
-                           torch.as_tensor(w).cpu().reshape(-1).long())
-    q_words, gid, db_pad, inv_pos = a[1], a[6], a[21], a[22]
+    want = dp.device_probe_walk_batched_plain(
+        torch.full_like(a[0], dp.POS_INF), *a[1:], **kw)
+    pm = torch.full_like(a[0], dp.POS_INF)
+    got = dp.device_probe_walk_batched(pm, *a[1:], **kw, form="grid")
+    assert dp.LAST_WALK_GRID[2] == "grid"
+    _same_walk(got, want, kw["cap"])
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        dp.device_probe_walk_batched(torch.full_like(a[0], dp.POS_INF),
+                                     *a[1:], **kw, form="cluster")
+    # the extraction kernel after the kernel walk, against the plain
+    # extraction after the plain walk
+    done = torch.nonzero(want[3]).flatten()
+    width = int(got[5]) * kw["cap"]
+    for k in (1, 7, 300):
+        pm_k, pm_p = pm.clone(), want[0].clone()
+        before = dp.LAUNCHES["probe_extract"]
+        ids, pos = dp.extract_touched(pm_k, got[6], got[8], a[7], k, done,
+                                      width)
+        assert dp.LAUNCHES["probe_extract"] == before + 1
+        w_ids, w_pos = dp.extract_touched_plain(pm_p, want[6], want[8], a[7],
+                                                k, done, width)
+        assert torch.equal(ids, w_ids) and torch.equal(pos, w_pos)
+        assert bool((pm_k == dp.POS_INF).all())
+    s, skw = seen["device_probe_scan_topk"]
+    plain_kw = {key: v for key, v in skw.items() if key != "plan"}
+    q_words, gid, t_stop, db_pad, inv_pos, n_valid, kk = s
     scan = dp.device_probe_scan_multi(q_words, gid, db_pad, inv_pos, n, p=p,
                                       chunk=2048)
     assert torch.equal(scan, dp.device_probe_scan_multi_plain(
         q_words, gid, db_pad, inv_pos, n, p=p, chunk=2048))
+    before = dp.LAUNCHES["probe_scan_topk"]
+    got = dp.device_probe_scan_topk(*s, **skw)
+    assert dp.LAUNCHES["probe_scan_topk"] == before + 1
+    _same_scan(got, dp.device_probe_scan_topk_plain(*s, **plain_kw))
 
 
 def test_per_group_walk_and_scan_kernels_equal_plain(cuda):
     """The G = 1 wrappers: ``probe_fused=False`` walks one z-group per
-    launch, and a truncated stream sends its queries to the per-group
-    scan."""
+    launch (in both forms), and a truncated stream sends its queries to
+    the per-group scan (map and fused)."""
     p, m, n, B, k = 64, 4, 30_000, 24, 7
     db = synthetic_binary_codes_packed(n, p, seed=5)
     q = synthetic_queries_packed(db, p, B, seed=6)
     eng = make_engine("amih", db, p, m=m, query_cache_size=0,
                       probe_stream_cap=256, probe_fused=False)
-    names = ("device_probe_walk", "device_probe_scan")
+    names = ("device_probe_walk", "device_probe_scan_topk")
     orig = {name: getattr(dp, name) for name in names}
     seen = {}
 
@@ -136,16 +181,39 @@ def test_per_group_walk_and_scan_kernels_equal_plain(cuda):
             setattr(dp, name, fn)
     assert set(seen) == set(names)
     a, kw = seen["device_probe_walk"]
+    kw = {key: v for key, v in kw.items() if key != "posmap_in"}
     for check_every in (1, 3):
         kw2 = dict(kw, check_every=check_every)
-        got = dp.device_probe_walk(*a, **kw2)
         want = dp.device_probe_walk_plain(*a, **kw2)
-        for g, w in zip(got, want):
-            assert torch.equal(torch.as_tensor(g).cpu().reshape(-1).long(),
-                               torch.as_tensor(w).cpu().reshape(-1).long())
-    a, kw = seen["device_probe_scan"]
-    assert torch.equal(dp.device_probe_scan(*a, **kw),
-                       dp.device_probe_scan_plain(*a, **kw))
+        for form in ("grid", "cluster"):
+            _same_walk(dp.device_probe_walk(*a, **kw2, form=form), want,
+                       kw["cap"])
+    s, skw = seen["device_probe_scan_topk"]
+    plain_kw = {key: v for key, v in skw.items() if key != "plan"}
+    q_words, gid, t_stop, db_pad, inv_pos, n_valid, kk = s
+    assert inv_pos.shape[0] == 1
+    assert torch.equal(
+        dp.device_probe_scan(q_words, db_pad, inv_pos[0], n_valid,
+                             **plain_kw),
+        dp.device_probe_scan_plain(q_words, db_pad, inv_pos[0], n_valid,
+                                   **plain_kw))
+    _same_scan(dp.device_probe_scan_topk(*s, **skw),
+               dp.device_probe_scan_topk_plain(*s, **plain_kw))
+
+
+def test_pooled_map_holds_pos_inf_after_card_batches(cuda):
+    """On the card, the pooled maps of the walk (batched and per group)
+    hold POS_INF everywhere after batches with and without bails."""
+    p, n = 64, 30_000
+    db = synthetic_binary_codes_packed(n, p, seed=5)
+    q = synthetic_queries_packed(db, p, 24, seed=6)
+    for cap in (1 << 16, 256):
+        eng = make_engine("amih", db, p, m=4, query_cache_size=0,
+                          probe_stream_cap=cap)
+        eng.knn_batch(q, 7)
+        eng.knn_batch(q[:1], 7)
+    bufs = [b for bs in ops._POSMAP_POOL.values() for b in bs]
+    assert bufs and all(bool((b == dp.POS_INF).all()) for b in bufs)
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -323,6 +391,13 @@ FLASH_CASES = [
     (2, 1, 160, 8, 1, 112, False, 0, 37),
     (1, 130, 130, 8, 1, 112, True, 0, None),
     (1, 33, 33, 2, 1, 20, True, 8, None),
+    # head dims above 256 (256-column chunks, 256-wide output slices) and
+    # 96 q heads per kv head (two bf16 head tiles)
+    (2, 70, 90, 4, 1, 320, True, 0, None),
+    (1, 130, 130, 2, 2, 512, False, 24, None),
+    (2, 1, 160, 4, 1, 512, False, 0, 37),
+    (2, 40, 60, 96, 1, 64, True, 0, None),
+    (1, 3, 160, 96, 1, 256, False, 16, 100),
 ]
 
 
@@ -396,9 +471,6 @@ def test_flash_attention_bf16_library_runs_on_the_tensor_cores(cuda):
 
 
 def test_flash_attention_raises_instead_of_falling_back(cuda):
-    q = torch.zeros((1, 4, 2, 257), device=cuda)          # D > 256
-    with pytest.raises(ValueError, match="1 <= D <= 256"):
-        fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
     q = torch.zeros((1, 4, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="flash_attention takes"):
         fa.flash_attention(q, q[:, :, :1], q[:, :, :1])

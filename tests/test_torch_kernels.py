@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _hypothesis_compat import given, settings, st
 
 from repro.core import pack_bits
 from repro.core import probe_device as r_pd
@@ -140,7 +141,7 @@ def test_plain_batched_walk_matches_reference(check_every, budget):
         use_pallas=False, interpret=True, **kw,
     )
     got = t_dp.device_probe_walk_batched(
-        torch.empty((Bp, n_pad), dtype=torch.int32),
+        torch.full((Bp, n_pad), t_dp.POS_INF, dtype=torch.int32),
         *[_t(a) for a in host], k, budget, *[_t(a) for a in tables], **kw,
     )
     assert int(np.asarray(want[5])) >= 1
@@ -212,3 +213,95 @@ def test_wrappers_refuse_devices_without_a_kernel():
     x = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         t_vt.gather_verify_grouped(x, x, x, x[0, :1], p=64)
+
+
+# ------------------------------------------------- extraction (slice 6)
+def _ref_rows(pm, t_stop, n, k, sims64):
+    """The reference's host ``_extract`` of each map row: (ids, pos)."""
+    out = []
+    for b in range(pm.shape[0]):
+        ids, pos, _ = r_pd._extract(pm[b], int(t_stop[b]), n, k, sims64)
+        out.append((ids, pos))
+    return out
+
+
+def _eq_rows(ids, pos, want):
+    ids, pos = ids.numpy(), pos.numpy()
+    for b, (w_ids, w_pos) in enumerate(want):
+        take = w_ids.size
+        assert np.array_equal(ids[b, :take], w_ids), b
+        assert np.array_equal(pos[b, :take], w_pos), b
+        assert (ids[b, take:] == -1).all() and (pos[b, take:] == -1).all()
+
+
+@settings(max_examples=8, deadline=None)
+@given(p=st.sampled_from([32, 64, 128]), seed=st.integers(0, 1 << 16),
+       k=st.sampled_from([1, 4, 17, 300]), n=st.sampled_from([300, 700]))
+def test_plain_fused_scan_matches_reference_extract(p, seed, k, n):
+    """The fused K3's plain version against the reference's
+    ``device_probe_scan_multi`` map followed by its host ``_extract``: the
+    same ids, positions and ``verified`` per query, with queries whose
+    ``t_stop`` leaves fewer than k, ties at the k-th position (many codes
+    share a tuple) and padded rows (``t_stop`` -1)."""
+    index, csr, q = _walk_case(p, n, 6, seed=seed, m=max(2, p // 16))
+    host, tables, Bp = _batched_args(index, csr, q, k)
+    q_p, gid, t_stop = host[0], host[5], host[6].copy()
+    t_stop[1] = min(t_stop[1], 2)
+    inv = tables[-1]
+    db_pad = np.asarray(csr["db_pad"])
+    pm = np.asarray(r_dp.device_probe_scan_multi(
+        jnp.asarray(q_p), jnp.asarray(gid), jnp.asarray(db_pad),
+        jnp.asarray(inv), jnp.int32(n), p=p, chunk=256, use_pallas=False,
+        interpret=True))
+    stack = r_pd.get_schedule_stack(index.p, index.m, csr["widths"],
+                                    index.probe_stream_cap)
+    want = [_ref_rows(pm[b:b + 1], t_stop[b:b + 1], n, k,
+                      stack.scheds[gid[b]].sims64)[0] for b in range(Bp)]
+    ids, pos, ver = t_dp.device_probe_scan_topk(
+        _t(q_p), _t(gid), _t(t_stop), _t(db_pad), _t(inv), n, k, p=p,
+        chunk=256)
+    _eq_rows(ids, pos, want)
+    _eq(ver, (pm != r_pd.POS_INF).sum(axis=1), "verified")
+
+
+@settings(max_examples=8, deadline=None)
+@given(p=st.sampled_from([32, 64, 128]), seed=st.integers(0, 1 << 16),
+       k=st.sampled_from([1, 5, 30]), cut=st.booleans())
+def test_touched_list_extraction_matches_reference_extract(p, seed, k, cut):
+    """The walk's touched lists and histograms, through
+    ``extract_touched``, against the reference walk's map through its host
+    ``_extract``, on the rows the walk finished: the same ids and
+    positions; ``n_touched`` is the reference's ``verified``; and the map
+    holds POS_INF everywhere afterwards."""
+    n, B = 900, 10
+    index, csr, q = _walk_case(p, n, B, seed=seed, m=max(2, p // 16))
+    host, tables, Bp = _batched_args(index, csr, q, k)
+    if cut:                                  # t_stop below the walk's end
+        host[6][:B] = np.minimum(host[6][:B], 5)
+    n_pad = csr["n_pad"]
+    budget = max(4, n_pad // (4 * 2048 * Bp))
+    kw = dict(_STATIC, p=p, check_every=1)
+    want = jax.jit(
+        r_dp.device_probe_walk_batched,
+        static_argnames=("p", "tile", "cap", "kmax", "check_every",
+                         "use_pallas", "interpret"),
+    )(
+        jnp.zeros((Bp, n_pad), jnp.int32), *[jnp.asarray(a) for a in host],
+        jnp.int32(k), jnp.int32(budget), *[jnp.asarray(a) for a in tables],
+        use_pallas=False, interpret=True, **kw,
+    )
+    pm = torch.full((Bp, n_pad), t_dp.POS_INF, dtype=torch.int32)
+    got = t_dp.device_probe_walk_batched(
+        pm, *[_t(a) for a in host], k, budget, *[_t(a) for a in tables], **kw)
+    ref_pm = np.asarray(want[0])
+    _eq(got[7], (ref_pm != r_pd.POS_INF).sum(axis=1), "n_touched")
+    done = np.flatnonzero(np.asarray(want[3]))
+    stack = r_pd.get_schedule_stack(index.p, index.m, csr["widths"],
+                                    index.probe_stream_cap)
+    gid, t_stop = host[5], host[6]
+    ref = [_ref_rows(ref_pm[b:b + 1], t_stop[b:b + 1], n, k,
+                     stack.scheds[gid[b]].sims64)[0] for b in done]
+    ids, pos = t_dp.extract_touched(pm, got[6], got[8], _t(t_stop), k, done,
+                                    int(got[5]) * kw["cap"])
+    _eq_rows(ids, pos, ref)
+    assert bool((pm == t_dp.POS_INF).all())
