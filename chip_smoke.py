@@ -14,7 +14,8 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    without HGMMA, fails the run;
 2. each kernel against its plain PyTorch version on the card, by equality:
    K1 (grouped verify) at p in {64, 128}, B = 64, C = 2048 with ragged
-   lengths that include 0; K2 (probing walk) and K3 (scan) on the operands
+   lengths that include 0, and at every code width (W = 1 to 8 and 10)
+   and the edge shapes of ``K1_EDGE``; K2 (probing walk) and K3 (scan) on the operands
    the main path hands them at n = 2^18 clustered codes, B = 64 mixed z:
    the batched walk (G > 1) and the per-group walk (G = 1), each in both
    forms (cooperative grid, one thread-block cluster) with check_every in
@@ -28,7 +29,9 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    k = 1024, also over a database of five distinct codes), K5 (block
    maxima) and K6 (one-query tuples) at n = 2^18 (a ragged last tile),
    p in {64, 128}, B = 64 with a zero-norm query and an all-zero code,
-   bit for bit; K7 (flash attention) on ``FLASH_CASES`` (G = 1 to 8, 3
+   bit for bit, and K5 at every code width (W = 1 to 8) and the edge
+   shapes of ``K5_EDGE`` (B = 1, ragged query tiles, blk from 1 to past
+   n, codes off their 16-byte boundary); K7 (flash attention) on ``FLASH_CASES`` (G = 1 to 8, 3
    and 96, ragged tiles, windows, decode rows, head dims 16 to 512 with
    16, 20, 48, 112, 320 and 512 between and above the kernel's widths) in
    float32 and bf16 against its
@@ -62,7 +65,9 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       the fused kernel's cap, takes the chunked route (K4 scores per
       65,536 codes, a running top-K) and its first 1024 equal the fused
       kernel's. ``ops.scan_topk_pruned`` (K5, then the fused top-k on the
-      surviving blocks) at B in {1, 64}, K = 10 equals ``ops.scan_topk``;
+      surviving blocks) at B in {1, 64}, K = 10 equals ``ops.scan_topk``,
+      and both are timed (ms/query, median of 5 warm batches, host clock
+      to a synchronize) with its scanned_fraction;
       ``ops.verify_tuples_op``
       (K6) on one query against all n codes equals the host's tuples. One
       batch at p = 128, B in {64, 1}, runs under the profiler and the
@@ -99,8 +104,10 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    takes longest; see ``op_rates`` and ``flash_bound_ms``); K2 in both
    forms with its iterations (ms per iteration) and the extraction after
    it, the fused K3 beside the map-writing K3 and the map's extraction;
-   the fused top-k
-   at the main path's B = 64 call and at its first query alone (B = 1); K7
+   the fused top-k and K5
+   at the main path's B = 64 call and at its first query alone (B = 1);
+   K1 at the host walk's largest call and at B = 1, C = 8 (the card's
+   per-launch floor for it); K7
    also beside
    ``scaled_dot_product_attention`` on the same tensors (its
    ``library_ms``; the port never calls it).
@@ -585,8 +592,10 @@ def check_walk_calls(dp, rec, label, timed=frozenset(), reps=3):
                 ref = vt.gather_verify_grouped_plain(*a[:4], kw["p"])
                 entry = {"max_abs_err": max_err([got], [ref])}
                 if is_timed:
+                    # a few microseconds a launch: many launches a timing
                     entry["ms"] = cuda_ms(
-                        lambda: vt.gather_verify_grouped(*a, **kw), reps)
+                        lambda: vt.gather_verify_grouped(*a, **kw),
+                        max(reps, 100))
                     t0 = time.perf_counter()
                     vt.gather_verify_grouped_plain(*a[:4], kw["p"])
                     torch.cuda.synchronize()
@@ -710,6 +719,99 @@ def check_verify(vt, torch, dev, p, B=64, C=2048, N=1 << 18, seed=0):
     bound, by = verify_bound_ms(B, C, W, int(lens_np.sum()))
     return {"max_abs_err": err, "ms": ms, "plain_ms": pl, "bound_ms": bound,
             "bound_by": by}
+
+
+def offset_view(torch, t):
+    """A copy of ``t`` in a view that starts 4 bytes past a 16-byte
+    boundary (the kernels' vector loads must not take it)."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = buf[1 : 1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+# K1's edge shapes (p, B, C, offset idx, offset codes): W = 1 to 8 and 10
+# (its runtime-W form), C from 1 to 5000 (blocks wholly past a length),
+# lengths 0, C and ragged, the last row as a candidate; K5's (p, B, blk,
+# offset codes) over 70,001 codes: W = 1 to 8, B = 1 and ragged query
+# tiles, blk 1, 37, 128, 1000, 2048 and N + 5 (None). An offset array
+# starts 4 bytes past a 16-byte boundary (codes so placed take the
+# kernels' scalar-load forms).
+K1_EDGE = [(32, 3, 1, False, False), (64, 5, 7, False, True),
+           (96, 5, 7, True, False), (128, 9, 1024, False, True),
+           (160, 9, 1024, False, False), (192, 9, 300, True, True),
+           (224, 5, 5000, False, False), (256, 9, 1024, True, False),
+           (256, 9, 300, False, True), (320, 5, 300, False, False)]
+K5_EDGE = [(32, 1, 1, False), (64, 17, 37, False), (96, 33, 128, False),
+           (128, 11, None, True), (160, 64, 2048, False),
+           (192, 1, 1000, True), (224, 17, 2048, False),
+           (256, 33, 37, True), (128, 1, 2048, True), (256, 64, 1, False),
+           (64, 11, 2048, True)]
+
+
+def check_edge_shapes(vt, bm, ops, torch, dev, n=70_001):
+    """Phase 2: K1 and K5 against their plain versions at every code width
+    and at the edge shapes of ``K1_EDGE`` and ``K5_EDGE``, exactly (K5's
+    float32 maxima as their bits); the comparison launches do not count."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import (
+        synthetic_binary_codes_packed,
+        synthetic_queries_packed,
+    )
+
+    saved = (dict(vt.LAUNCHES), dict(bm.LAUNCHES))
+    for p, B, C, off_idx, off_db in K1_EDGE:
+        rng = np.random.default_rng(p + C)
+        W, N = (p + 31) // 32, 5000
+        words = rng.integers(0, 1 << 32, size=(N + B, W), dtype=np.uint64)
+        words = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+        db, q = words[:N].to(dev), words[N:].to(dev)
+        idx = rng.integers(0, N, size=(B, C)).astype(np.int32)
+        idx[1, -1] = N - 1
+        lens = rng.integers(0, C + 1, size=B).astype(np.int32)
+        lens[:3] = [0, C, C // 2 + 1]
+        idx = torch.from_numpy(idx).to(dev)
+        lens = torch.from_numpy(lens).to(dev)
+        if off_idx:
+            idx = offset_view(torch, idx)
+        if off_db:
+            db = offset_view(torch, db)
+        got = vt.gather_verify_grouped(q, db, idx, lens, p=p)
+        max_err([got], [vt.gather_verify_grouped_plain(q, db, idx, lens, p)])
+    for p, B, blk, off in K5_EDGE:
+        blk = n + 5 if blk is None else blk
+        db = synthetic_binary_codes_packed(n, p, seed=SEED + p)
+        q = synthetic_queries_packed(db, p, B, seed=SEED + p + 1)
+        db[5] = 0
+        if B > 1:
+            q[1] = 0
+        db_t, q_t = ops.to_device(db, dev), ops.to_device(q, dev)
+        z = ops.query_popcounts(q_t)
+        if off:
+            db_t = offset_view(torch, db_t)
+        got = bm.blockmax_scores(q_t, z, db_t, blk_n=blk)
+        want = bm.blockmax_scores_plain(q_t, z, db_t, blk)
+        max_err([got.view(torch.int32)], [want.view(torch.int32)])
+    torch.cuda.synchronize()
+    vt.LAUNCHES.update(saved[0])
+    bm.LAUNCHES.update(saved[1])
+    return len(K1_EDGE), len(K5_EDGE)
+
+
+def k1_floor(vt, torch, a, p, reps=100):
+    """K1 at B = 1, C = 8 on the first row of a main-path call (the card's
+    per-launch floor for it), checked against its plain version: ms."""
+    q, db, idx, lens = a
+    a1 = (q[:1].contiguous(), db, idx[:1, :8].contiguous(),
+          lens[:1].clamp(max=8).contiguous())
+    saved = dict(vt.LAUNCHES)
+    got = vt.gather_verify_grouped(*a1, p=p)
+    max_err([got], [vt.gather_verify_grouped_plain(*a1, p)])
+    ms = cuda_ms(lambda: vt.gather_verify_grouped(*a1, p=p), reps)
+    vt.LAUNCHES.update(saved)
+    return ms
 
 
 def scan_bound_ms_pairs(B, N, W, out_elems):
@@ -842,10 +944,11 @@ def same_but_ties(ids, sims, o_ids, o_sims, atol=1e-12):
 
 
 def scan_path(p, db, batch, singles, chk, want_topk, amih_rows, *, dev,
-              tag, timings):
+              tag, timings, pruned):
     """Phase 3b at one p: the CUDA linear scan's cases (appended to
-    ``timings``), its pruned scan and its one-query verify, each checked
-    as the module docstring says. ``want_topk(row, k)`` is the float64
+    ``timings``), its pruned scan beside ``ops.scan_topk`` (appended to
+    ``pruned``) and its one-query verify, each checked as the module
+    docstring says. ``want_topk(row, k)`` is the float64
     scan's top-k of row ``row`` of ``chk``; ``amih_rows[k]`` the AMIH
     path's B = 64 result."""
     import numpy as np
@@ -953,13 +1056,28 @@ def scan_path(p, db, batch, singles, chk, want_topk, amih_rows, *, dev,
         f"K4 launches; its top {KCAP_MAX} equal to the fused kernel's")
     del c_sims, c_ids
     for B in (64, 1):
-        f_sims, f_ids = ops.scan_topk(q_t[:B], db_t, 10)
-        p_sims, p_ids, frac = ops.scan_topk_pruned(q_t[:B], db_t, 10)
+        q_b = q_t[:B]
+        f_sims, f_ids = ops.scan_topk(q_b, db_t, 10)
+        p_sims, p_ids, frac = ops.scan_topk_pruned(q_b, db_t, 10)
         if not (torch.equal(f_sims, p_sims) and torch.equal(f_ids, p_ids)):
             raise AssertionError(f"p={p} B={B}: scan_topk_pruned differs "
                                  "from scan_topk")
+        # ms/query of each, median of 5 warm batches (host clock to a
+        # synchronize: the pruned scan waits for the card in its nonzero)
+        ms = []
+        for fn in (lambda: ops.scan_topk(q_b, db_t, 10),
+                   lambda: ops.scan_topk_pruned(q_b, db_t, 10)):
+            runs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3 / B)
+            ms.append(statistics.median(runs))
+        pruned.append((p, B, ms[0], ms[1], float(frac)))
         log(f"  scan_topk_pruned p={p} B={B} K=10: equal to scan_topk; "
-            f"scanned_fraction {float(frac):.6f}")
+            f"scanned_fraction {float(frac):.6f}; {ms[1]:.4f} ms/query "
+            f"(scan_topk {ms[0]:.4f}; median of 5 warm batches) {tag}")
     r10, r01 = ops.verify_tuples_op(q_t[0], db_t)
     h10, h01 = hamming_tuples(batch[0], db)
     if not (np.array_equal(r10.cpu().numpy(), h10)
@@ -1475,6 +1593,11 @@ def main() -> int:
     for p in (64, 128):
         names = check_scan_kernels(kernels46, ops, torch, dev, p)
         log(f"  {', '.join(names)} p={p} n=2^18 B=64: equal bit for bit")
+    n1, n5 = check_edge_shapes(vt, bm, ops, torch, dev)
+    log(f"  K1 at {n1} edge shapes (W = 1 to 8 and 10, C 1 to 5000, lengths "
+        f"0, C and ragged, the last row, offset index and code views) and K5 "
+        f"at {n5} (W = 1 to 8, B 1 to 64, blk 1, 37, 128, 1000, 2048 and "
+        f"N + 5 over 70,001 codes, offset code views): equal bit for bit")
     worst = check_flash_cases(fa, torch, dev)
     log(f"  K7 flash_attention, {len(FLASH_CASES)} cases x float32/bf16 "
         f"(MHA, GQA, MQA, G = 3; causal or not; windows 8, 16, 24, 64; "
@@ -1512,6 +1635,7 @@ def main() -> int:
     captured_scan = {}
     timings = []
     scan_timings = []
+    pruned_timings = []
     for p, m in ((64, 4), (128, 8)):
         t0 = time.perf_counter()
         db = synthetic_binary_codes_packed(N_MAIN, p, seed=SEED)
@@ -1687,7 +1811,8 @@ def main() -> int:
         zero_counts()                     # path b: the linear scan
         with Recorder(sites(ops, Recorder.SCANS)) as srec:
             scan_path(p, db, batch, singles, chk, want_topk, amih_rows,
-                      dev=dev, tag=tag, timings=scan_timings)
+                      dev=dev, tag=tag, timings=scan_timings,
+                      pruned=pruned_timings)
         add_counts(scan_counts)
         captured_scan[p] = srec.calls
         del db
@@ -1737,10 +1862,12 @@ def main() -> int:
                 q_words, _, idx, lens = entry["args"]
                 bound, by = verify_bound_ms(q_words.shape[0], idx.shape[1], W,
                                             int(lens.sum()))
-                entry.update(bound_ms=bound, bound_by=by)
-                log(f"  {nm} p={p} B={B}: kernel {entry['ms']:.4f} ms, plain "
-                    f"{entry['plain_ms']:.2f} ms, bound {bound:.4f} ms ({by}) "
-                    f"{tag}")
+                floor = k1_floor(vt, torch, entry["args"], p)
+                entry.update(bound_ms=bound, bound_by=by, floor_ms=floor)
+                log(f"  {nm} p={p} B={B} (B={q_words.shape[0]}, "
+                    f"C={idx.shape[1]}): kernel {entry['ms']:.6f} ms, plain "
+                    f"{entry['plain_ms']:.2f} ms, bound {bound:.6f} ms ({by}); "
+                    f"at B=1, C=8 (the launch floor) {floor:.6f} ms {tag}")
             elif nm.startswith("device_probe_walk"):
                 a = entry["args"]
                 k = _walk_tstop_k(nm, a)[1]
@@ -1788,7 +1915,7 @@ def main() -> int:
                                      f"called {name}")
             (a, kw), = calls
             shapes = [(name, a)]
-            if name == "hamming_scan_topk":
+            if name in ("hamming_scan_topk", "blockmax_scores"):
                 # the same call for the first query alone: B = 1
                 shapes.append((name + "_b1",
                                (a[0][:1].contiguous(), a[1][:1].contiguous())
@@ -1894,6 +2021,20 @@ def main() -> int:
             f"walk/batch {wpb:.0f}, scan/batch {spb:.2f}")
     for (p, B, K, med) in scan_timings:
         log(f"  linear scan p={p:3d} B={B:2d} K={K:3d}: {med:.4f} ms/query")
+    for (p, B, full, prn, frac) in pruned_timings:
+        log(f"  pruned scan p={p:3d} B={B:2d} K= 10: {prn:.4f} ms/query "
+            f"(scan_topk {full:.4f}), scanned_fraction {frac:.6f}")
+    for p in (64, 128):
+        e = scan_meas[p, "blockmax_scores"]
+        e1 = scan_meas[p, "blockmax_scores_b1"]
+        log(f"  K5 p={p:3d}: B=64 {e['ms']:.6f} ms (bound "
+            f"{e['bound_ms']:.6f}), B=1 {e1['ms']:.6f} ms (bound "
+            f"{e1['bound_ms']:.6f})")
+    if k1_main:
+        e = k1_main[1]
+        log(f"  K1 p={k1_main[0][0]}: {e['ms']:.6f} ms (bound "
+            f"{e['bound_ms']:.6f}), launch floor (B=1, C=8) "
+            f"{e['floor_ms']:.6f} ms")
     r = retrieval
     log(f"  retrieval (gemma-2b, p=64, K=10): B=64 {r['ms_b64']:.4f}, B=1 "
         f"{r['ms_b1']:.4f} ms/query; encode "

@@ -51,7 +51,11 @@ def _launch(lib, q_words, db_words, cand_idx, lengths, out, p: int,
         _build.require(lengths, "lengths", (B,), dev),
         _build.require(out, "out", (B, C), dev),
     ]
-    _build.call(lib, "verify_grouped", ptrs, [B, C, W, p], stream)
+    # vector row loads where every row is aligned for them; other codes
+    # take the scalar-load instantiation
+    addr = db_words.data_ptr()
+    vec = (W == 2 and addr % 8 == 0) or (W in (4, 8) and addr % 16 == 0)
+    _build.call(lib, "verify_grouped", ptrs, [B, C, W, p, vec], stream)
 
 
 def gather_verify_grouped(q_words, db_words, cand_idx, lengths, *, p: int):

@@ -32,6 +32,7 @@
 #define __restrict__ __restrict
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 
 struct dim3 {
   unsigned x, y, z;

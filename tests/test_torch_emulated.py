@@ -63,15 +63,59 @@ def _same(got, want):
         assert torch.equal(g.reshape(w.shape), w)
 
 
-@pytest.mark.parametrize("p", [64, 128])
-def test_emulated_grouped_verify_equals_plain(emu, p):
-    rng = np.random.default_rng(p)
-    W, N, B, C = (p + 31) // 32, 400, 5, 300
+def _offset(t):
+    """A copy of ``t`` in a view that starts 4 bytes past a 16-byte
+    boundary (the kernels' vector loads must not take it)."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = buf[1 : 1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+def _verify_operands(p, B, C, N, seed):
+    """Random codes and candidates; lens 0, C, a ragged middle value and
+    random ones; a live slot that holds the last row."""
+    rng = np.random.default_rng(seed)
+    W = (p + 31) // 32
     words = rng.integers(0, 1 << 32, size=(N + B, W), dtype=np.uint64)
     words = torch.from_numpy(words.astype(np.uint32).view(np.int32))
     db, q = words[:N].contiguous(), words[N:].contiguous()
     idx = torch.from_numpy(rng.integers(0, N, size=(B, C)).astype(np.int32))
-    lens = torch.tensor([0, 5, C, 31, 1], dtype=torch.int32)
+    idx[1, -1] = N - 1
+    lens = torch.from_numpy(rng.integers(0, C + 1, size=B).astype(np.int32))
+    lens[:3] = torch.tensor([0, C, C // 2 + 1], dtype=torch.int32)[:B]
+    return q, db, idx, lens
+
+
+# (p, B, C, offset idx, offset codes): W = 1 to 8 and 10 (the runtime-W
+# form), C in {1, 7, 300, 1024, 2100} (2100: blocks wholly past a length),
+# index and code views off their 16-byte boundary (codes so placed take
+# the scalar-load form)
+VERIFY_CASES = [
+    pytest.param((64, 5, 300, False, False), id="64"),
+    pytest.param((128, 5, 300, False, False), id="128"),
+    pytest.param((32, 3, 1, False, False), id="w1-c1"),
+    pytest.param((64, 3, 7, False, True), id="w2-c7-offset-codes"),
+    pytest.param((96, 3, 7, True, False), id="w3-c7-offset-idx"),
+    pytest.param((128, 4, 1024, False, True), id="w4-c1024-offset-codes"),
+    pytest.param((160, 5, 1024, False, False), id="w5-c1024"),
+    pytest.param((192, 4, 300, True, True), id="w6-c300-offset-both"),
+    pytest.param((224, 3, 2100, False, False), id="w7-c2100"),
+    pytest.param((256, 5, 1024, True, False), id="w8-c1024-offset-idx"),
+    pytest.param((256, 3, 300, False, True), id="w8-c300-offset-codes"),
+    pytest.param((320, 3, 300, False, False), id="w10-c300"),
+]
+
+
+@pytest.mark.parametrize("case", VERIFY_CASES)
+def test_emulated_grouped_verify_equals_plain(emu, case):
+    p, B, C, off_idx, off_db = case
+    q, db, idx, lens = _verify_operands(p, B, C, 400, seed=p + C)
+    if off_idx:
+        idx = _offset(idx)
+    if off_db:
+        db = _offset(db)
     out = torch.empty((B, C), dtype=torch.int32)
     vt._launch(emu["verify_grouped"], q, db, idx, lens, out, p, 0)
     assert torch.equal(out,
@@ -402,11 +446,39 @@ def test_emulated_fused_topk_equals_plain(emu, case):
         assert bool(((scores == kth).sum(1) > (ws == kth).sum(1)).all())
 
 
-@pytest.mark.parametrize("blk", [128, 2048])
-def test_emulated_blockmax_equals_plain(emu, blk):
-    q, z, db = _scan_operands(128, 11, 700, seed=blk)   # a ragged block
-    out = torch.empty((11, -(-700 // blk)), dtype=torch.float32)
-    bm._launch(emu["blockmax_scan"], q, z, db, out, blk, 0)
+# (p, B, N, blk, offset codes): W = 1, 2, 3, 4, 7 and 8; B = 1 (the
+# one-query form, four rows a thread per step), 11, 17 and 33 (ragged
+# query tiles); blk 1, 37, 128, 2048 and N + 5 (below and above a step,
+# not a multiple of it, a ragged last block, one block past N); codes in a
+# view off its 16-byte boundary (the scalar-load form). Three kernel
+# blocks a query tile, each walking several row blocks.
+BLOCKMAX_CASES = [
+    pytest.param((128, 11, 700, 128, False), id="128"),
+    pytest.param((128, 11, 700, 2048, False), id="2048"),
+    pytest.param((32, 1, 300, 1, False), id="w1-b1-blk1"),
+    pytest.param((64, 17, 700, 37, False), id="w2-b17-blk37"),
+    pytest.param((96, 33, 600, 128, False), id="w3-b33-blk128"),
+    pytest.param((200, 11, 500, 37, False), id="w7-b11-blk37"),
+    pytest.param((256, 17, 900, 2048, False), id="w8-b17-blk2048"),
+    pytest.param((256, 1, 1500, 128, False), id="w8-b1-blk128"),
+    pytest.param((128, 1, 2500, 2048, False), id="w4-b1-blk2048"),
+    pytest.param((64, 33, 150, 1, False), id="w2-b33-blk1"),
+    pytest.param((128, 17, 705, "N+5", True), id="w4-b17-blkN5-offset"),
+    pytest.param((256, 11, 600, "N+5", True), id="w8-b11-blkN5-offset"),
+    pytest.param((96, 1, 400, 37, True), id="w3-b1-blk37-offset"),
+]
+
+
+@pytest.mark.parametrize("case", BLOCKMAX_CASES)
+def test_emulated_blockmax_equals_plain(emu, case):
+    p, B, N, blk, off = case
+    blk = N + 5 if blk == "N+5" else blk
+    q, z, db = _scan_operands(p, B, N, seed=blk + B)
+    if off:
+        db = _offset(db)
+    out = torch.empty((B, -(-N // blk)), dtype=torch.float32)
+    plan = bm.blockmax_plan(B, N, blk, 1, W=q.shape[1])
+    bm._launch(emu["blockmax_scan"], q, z, db, out, blk, plan, 0)
     want = bm.blockmax_scores_plain(q, z, db, blk)
     assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 

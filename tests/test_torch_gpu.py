@@ -41,15 +41,52 @@ def _words(rng, shape):
         .astype(np.uint32).view(np.int32))
 
 
-@pytest.mark.parametrize("p", [32, 64, 128])
-def test_grouped_verify_kernel_equals_plain(cuda, p):
-    rng = np.random.default_rng(p)
-    W, N, B, C = (p + 31) // 32, 5000, 16, 300
+def _offset(t):
+    """A copy of ``t`` in a view that starts 4 bytes past a 16-byte
+    boundary (the kernels' vector loads must not take it)."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = buf[1 : 1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+# (p, B, C, offset idx, offset codes): W = 1 to 8 and 10 (the runtime-W
+# form), C from 1 to 5000 (blocks wholly past a length), index and code
+# views off their 16-byte boundary (codes so placed take the scalar-load
+# form)
+VERIFY_CASES = [
+    pytest.param((32, 16, 300, False, False), id="32"),
+    pytest.param((64, 16, 300, False, False), id="64"),
+    pytest.param((128, 16, 300, False, False), id="128"),
+    pytest.param((32, 3, 1, False, False), id="w1-c1"),
+    pytest.param((64, 5, 7, False, True), id="w2-c7-offset-codes"),
+    pytest.param((96, 5, 7, True, False), id="w3-c7-offset-idx"),
+    pytest.param((128, 9, 1024, False, True), id="w4-c1024-offset-codes"),
+    pytest.param((160, 9, 1024, False, False), id="w5-c1024"),
+    pytest.param((192, 9, 300, True, True), id="w6-c300-offset-both"),
+    pytest.param((224, 5, 5000, False, False), id="w7-c5000"),
+    pytest.param((256, 9, 1024, True, False), id="w8-c1024-offset-idx"),
+    pytest.param((256, 9, 300, False, True), id="w8-c300-offset-codes"),
+    pytest.param((320, 5, 300, False, False), id="w10-c300"),
+]
+
+
+@pytest.mark.parametrize("case", VERIFY_CASES)
+def test_grouped_verify_kernel_equals_plain(cuda, case):
+    p, B, C, off_idx, off_db = case
+    rng = np.random.default_rng(p + C)
+    W, N = (p + 31) // 32, 5000
     db, q = _words(rng, (N, W)).to(cuda), _words(rng, (B, W)).to(cuda)
     idx = torch.from_numpy(rng.integers(0, N, size=(B, C)).astype(np.int32))
+    idx[1, -1] = N - 1
     lens = torch.from_numpy(rng.integers(0, C + 1, size=B).astype(np.int32))
-    lens[0] = 0
+    lens[:3] = torch.tensor([0, C, C // 2 + 1], dtype=torch.int32)
     idx, lens = idx.to(cuda), lens.to(cuda)
+    if off_idx:
+        idx = _offset(idx)
+    if off_db:
+        db = _offset(db)
     before = vt.LAUNCHES["verify_grouped"]
     got = vt.gather_verify_grouped(q, db, idx, lens, p=p)
     assert vt.LAUNCHES["verify_grouped"] == before + 1
@@ -250,10 +287,34 @@ def test_hamming_scan_kernel_equals_plain(cuda, p, B):
         q.cpu(), z.cpu(), db.cpu())))
 
 
-@pytest.mark.parametrize("p,B,blk", [(64, 64, 2048), (128, 1, 2048),
-                                     (128, 9, 1000)])
-def test_blockmax_kernel_equals_plain(cuda, p, B, blk):
-    q, z, db = _scan_operands(p, B, 70_001, seed=p + blk, device=cuda)
+# (p, B, blk, offset codes) over 70,001 codes: W = 1, 2, 3, 4, 7 and 8;
+# B = 1 (the one-query form), 9, 11, 17, 33 and 64; blk 1, 37, 128, 1000,
+# 2048 and N + 5; codes in a view off its 16-byte boundary
+BLOCKMAX_CASES = [
+    pytest.param((64, 64, 2048, False), id="64-64-2048"),
+    pytest.param((128, 1, 2048, False), id="128-1-2048"),
+    pytest.param((128, 9, 1000, False), id="128-9-1000"),
+    pytest.param((32, 1, 1, False), id="w1-b1-blk1"),
+    pytest.param((64, 17, 37, False), id="w2-b17-blk37"),
+    pytest.param((96, 33, 128, False), id="w3-b33-blk128"),
+    pytest.param((200, 11, 37, False), id="w7-b11-blk37"),
+    pytest.param((256, 17, 2048, False), id="w8-b17-blk2048"),
+    pytest.param((256, 1, 128, False), id="w8-b1-blk128"),
+    pytest.param((64, 33, 1, False), id="w2-b33-blk1"),
+    pytest.param((128, 17, "N+5", True), id="w4-b17-blkN5-offset"),
+    pytest.param((256, 11, 2048, True), id="w8-b11-blk2048-offset"),
+    pytest.param((96, 1, 37, True), id="w3-b1-blk37-offset"),
+]
+
+
+@pytest.mark.parametrize("case", BLOCKMAX_CASES)
+def test_blockmax_kernel_equals_plain(cuda, case):
+    p, B, blk, off = case
+    N = 70_001
+    blk = N + 5 if blk == "N+5" else blk
+    q, z, db = _scan_operands(p, B, N, seed=p + B, device=cuda)
+    if off:
+        db = _offset(db)
     before = bm.LAUNCHES["blockmax_scan"]
     got = bm.blockmax_scores(q, z, db, blk_n=blk)
     assert bm.LAUNCHES["blockmax_scan"] == before + 1
