@@ -92,8 +92,23 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       K7 lie within one bf16 step of the largest of them from the same
       forward through K7's plain version; K7 launched layers x encoder
       batches times.
-   Every kernel launch counter is set to 0 just before each path (a, b)
-   at each p, and before c, and read just after it; K2 launches count by
+   d. The shard and pipeline layers on the codes of a (``shard_path``).
+      At both p the host walk's 4 queries with the verify overlap (K1 on
+      a side CUDA stream) equal a's sequential host walk bit for bit, with
+      the same K1 launch count. At p = 64 ``make_engine("single_table",
+      ...)`` (host code; enumeration cap 2^20, past which a query takes
+      the exact host scan) answers 8 queries at K = 10, equal to the
+      float64 scan but for equal-cosine ties. At p = 128, 8 shards all on
+      the one card: ``sharded_amih`` with the device walk at B in {64, 1},
+      K in {10, 100} (one K2 launch and one extraction per batch over the
+      card's super index; float64 sims bit-identical to a's AMIH as a
+      multiset, ids equal but for ties); ``sharded_scan`` (8 fused K4
+      calls per batch; ids and sims bit-identical to the linear scan);
+      ``sharded_amih`` on the host walk with the CUDA verify (the
+      thread-mode shard pool equal to its sequential chain). Each prints
+      ms/query. Shards over several cards need several cards.
+   Every kernel launch counter is set to 0 just before each path (a, d,
+   b) at each p, and before c, and read just after it; K2 launches count by
    form (grid, cluster), K3 by kernel (fused, map), and on path a also by
    wrapper and query rows;
 4. each kernel against its plain version again, on operands captured from
@@ -1099,6 +1114,218 @@ def scan_path(p, db, batch, singles, chk, want_topk, amih_rows, *, dev,
                        "scan_p128_B1_K10")
 
 
+# ------------------------------------------------------- phase 3d: shards
+N_SHARDS = 8
+
+
+def _ms_runs(fn, B, runs=5):
+    """Median ms/query of ``runs`` calls of ``fn`` (host clock; every
+    engine call ends in host copies of its results) and the last result."""
+    ms, out = [], None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        ms.append((time.perf_counter() - t0) * 1e3 / B)
+    return statistics.median(ms), out
+
+
+def shard_path(p, m, db, batch, singles, eng, host, h_out, *, dev, tag,
+               chk, want_topk, rows):
+    """Phase 3d at one p: the shard and pipeline layers on phase 3a's
+    codes, the shards all on ``dev`` (the module docstring lists the
+    checks). ``eng`` is phase 3a's AMIH engine, ``host`` its host walk
+    with the CUDA verify and ``h_out`` that walk's (ids, sims, K1
+    launches) on ``batch[:4]``. Appends (label, ms/query) to ``rows``."""
+    import numpy as np
+
+    from repro_torch.core.engine import make_engine
+    from repro_torch.kernels import device_probe as dp
+    from repro_torch.kernels import hamming_scan as hs
+    from repro_torch.kernels import verify_tuples as vt
+    from repro_torch.pipeline import VerifyOverlap
+
+    def walks():
+        return (dp.LAUNCHES["probe_walk"] + dp.LAUNCHES["probe_walk_cluster"],
+                dp.LAUNCHES["probe_extract"], dp.LAUNCHES["probe_scan_topk"])
+
+    # the host walk's 4 queries with the verify overlap (K1 on a side
+    # stream): bit-identical to phase 3a's sequential walk, same K1 count
+    h_ids, h_sims, h_launches = h_out
+    ov = VerifyOverlap()
+    l0, k0 = host.verify_launches, vt.LAUNCHES["verify_grouped"]
+    o_ids, o_sims = host.knn_batch(batch[:4], 10, overlap=ov)
+    launched = host.verify_launches - l0
+    k_ovl = vt.LAUNCHES["verify_grouped"] - k0
+    # timed in turns after that first (checked) call: sequential,
+    # overlapped, sequential, overlapped; the better of each pair
+    t_seq, t_ovl = float("inf"), float("inf")
+    for _ in range(2):
+        for over in (None, ov):
+            t0 = time.perf_counter()
+            host.knn_batch(batch[:4], 10, overlap=over)
+            ms = (time.perf_counter() - t0) * 1e3 / 4
+            if over is None:
+                t_seq = min(t_seq, ms)
+            else:
+                t_ovl = min(t_ovl, ms)
+    ov.close()
+    if not (np.array_equal(o_ids, h_ids) and np.array_equal(o_sims, h_sims)
+            and launched == h_launches == k_ovl
+            and ov.device_steps > 0):
+        raise AssertionError(f"p={p}: the verify overlap differs from the "
+                             f"sequential host walk ({launched} K1 launches "
+                             f"against {h_launches})")
+    rows.append((f"host walk + K1, overlap_verify, p={p} B=4 K=10", t_ovl))
+    rows.append((f"host walk + K1, sequential, p={p} B=4 K=10", t_seq))
+    log(f"  p={p}: host walk with overlap_verify, 4 queries K=10: "
+        f"bit-identical to phase 3a's sequential walk, {launched} K1 "
+        f"launches (the same), {ov.device_steps} steps on the side stream "
+        f"over three calls; {t_ovl:.2f} ms/query (sequential {t_seq:.2f}; "
+        f"the better of two calls each, in turns) {tag}")
+
+    if p == 64:
+        # the single table (host code) on 8 queries, against the float64
+        # scan up to equal-cosine ties; the enumeration cap sends the
+        # queries whose k-th neighbour lies far to the exact host scan
+        t0 = time.perf_counter()
+        st_eng = make_engine("single_table", db, p, enumeration_cap=1 << 20)
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids, sims, st = st_eng.knn_batch(batch[:8], 10)
+        ms = (time.perf_counter() - t0) * 1e3 / 8
+        w = [want_topk(j, 10) for j in range(8)]
+        exact = same_but_ties(ids, sims, np.stack([x[0] for x in w]),
+                              np.stack([x[1] for x in w]))
+        falls = sum(s.fell_back_to_scan for s in st.per_query)
+        rows.append((f"single_table p={p} B=8 K=10", ms))
+        log(f"  single_table p={p} B=8 K=10: {ms:.2f} ms/query (host code; "
+            f"build {t_build:.1f} s), {falls}/8 queries past the enumeration "
+            f"cap to the exact scan; {exact}/8 rows equal to the float64 "
+            f"scan, the rest but for equal-cosine ties")
+        return
+
+    # sharded AMIH, the device walk: one super index for the card's 8
+    # shards, one K2 launch and one extraction per batch
+    t0 = time.perf_counter()
+    sh = make_engine("sharded_amih", db, p, m=m, num_shards=N_SHARDS,
+                     devices=[dev])
+    sh._fused_groups()
+    t_build = time.perf_counter() - t0
+    log(f"  sharded_amih p={p}: {N_SHARDS} shards on {dev}, build {t_build:.1f}"
+        f" s (the shard indexes and the card's super index)")
+    for B in (64, 1):
+        for K in (10, 100):
+            if B == 64:
+                u_ids, u_sims, _ = eng.knn_batch(batch, K)
+                sh.knn_batch(batch, K)                     # warm
+                w0 = walks()
+                ms, (ids, sims, st) = _ms_runs(
+                    lambda: sh.knn_batch(batch, K), B)
+                n_b = 5
+            else:
+                us = [eng.knn_batch(singles[j:j + 1], K) for j in range(1, 6)]
+                u_ids = np.concatenate([u[0] for u in us])
+                u_sims = np.concatenate([u[1] for u in us])
+                sh.knn_batch(singles[:1], K)               # warm
+                w0 = walks()
+                outs, ms_l = [], []
+                for j in range(1, 6):
+                    t0 = time.perf_counter()
+                    outs.append(sh.knn_batch(singles[j:j + 1], K))
+                    ms_l.append((time.perf_counter() - t0) * 1e3)
+                ms, n_b = statistics.median(ms_l), 5
+                ids = np.concatenate([o[0] for o in outs])
+                sims = np.concatenate([o[1] for o in outs])
+                st = outs[-1][2]
+            dw = [b - a for a, b in zip(w0, walks())]
+            if dw[0] != n_b or dw[1] != n_b or dw[2] > n_b:
+                raise AssertionError(
+                    f"sharded_amih p={p} B={B} K={K}: {dw[0]} K2 launches, "
+                    f"{dw[1]} extractions, {dw[2]} fused K3 calls for {n_b} "
+                    f"batches, expected one K2 and one extraction a batch")
+            for i in range(ids.shape[0]):
+                if not np.array_equal(np.sort(sims[i]), np.sort(u_sims[i])):
+                    raise AssertionError(f"sharded_amih p={p} B={B} K={K}: "
+                                         f"row {i}'s sims differ from AMIH's")
+            exact = same_but_ties(ids, sims, u_ids, u_sims)
+            lead = st.per_shard[0]
+            rows.append((f"sharded_amih device walk p={p} B={B} K={K}", ms))
+            log(f"  sharded_amih p={p} B={B} K={K}: {ms:.4f} ms/query "
+                f"(median of 5) {tag}; per batch 1 K2 launch, 1 extraction, "
+                f"{dw[2] / n_b:.2f} fused K3 calls; lead shard launches "
+                f"{lead['launches']}, riders "
+                f"{sum(d['launches'] for d in st.per_shard[1:])}; sims "
+                f"bit-identical to the unsharded AMIH, ids on "
+                f"{exact}/{ids.shape[0]} rows, the rest but for ties")
+    del sh
+
+    # the sharded scan: one fused K4 top-K call per shard, bit-identical
+    # to the linear scan
+    lin = make_engine("linear_scan", db, p, device=dev)
+    ss = make_engine("sharded_scan", db, p, num_shards=N_SHARDS,
+                     devices=[dev])
+    for B in (64, 1):
+        for K in (10, 100):
+            qs = [batch] if B == 64 else [singles[j:j + 1]
+                                          for j in range(1, 6)]
+            want = [lin.knn_batch(q, K) for q in qs]
+            ss.knn_batch(qs[0], K)                         # warm
+            f0 = hs.LAUNCHES["hamming_scan_topk"]
+            c0 = hs.LAUNCHES["hamming_scan"]
+            if B == 64:
+                ms, got = _ms_runs(lambda: ss.knn_batch(batch, K), B)
+                got, n_b = [got], 5
+            else:
+                got, ms_l = [], []
+                for q in qs:
+                    t0 = time.perf_counter()
+                    got.append(ss.knn_batch(q, K))
+                    ms_l.append((time.perf_counter() - t0) * 1e3)
+                ms, n_b = statistics.median(ms_l), 5
+            calls = hs.LAUNCHES["hamming_scan_topk"] - f0
+            if calls != N_SHARDS * n_b or hs.LAUNCHES["hamming_scan"] != c0:
+                raise AssertionError(f"sharded_scan p={p} B={B} K={K}: "
+                                     f"{calls} fused K4 calls for {n_b} "
+                                     f"batches, expected {N_SHARDS} a batch")
+            for g, w in zip(got, want):
+                if not (np.array_equal(g[0], w[0])
+                        and np.array_equal(g[1], w[1])):
+                    raise AssertionError(f"sharded_scan p={p} B={B} K={K}: "
+                                         "differs from the linear scan")
+            rows.append((f"sharded_scan p={p} B={B} K={K}", ms))
+            log(f"  sharded_scan p={p} B={B} K={K}: {ms:.4f} ms/query "
+                f"(median of 5) {tag}; {N_SHARDS} fused K4 calls per batch; "
+                f"ids and sims bit-identical to the linear scan")
+    del lin, ss
+
+    # sharded AMIH on the host walk with the CUDA verify: the sequential
+    # chain, then the thread-mode shard pool, equal
+    t0 = time.perf_counter()
+    hp = make_engine("sharded_amih", db, p, m=m, num_shards=N_SHARDS,
+                     devices=[dev], probe_backend="host",
+                     verify_backend="cuda")
+    t_build = time.perf_counter() - t0
+    ms_c, (c_ids, c_sims, _) = _ms_runs(lambda: hp.knn_batch(batch[:8], 10),
+                                        8, runs=1)
+    hp.probe_workers, hp.probe_mode = N_SHARDS, "thread"
+    hp.PARALLEL_MIN_SHARD_ROWS = hp.PARALLEL_MIN_CPUS = 0
+    hp.PARALLEL_MIN_BATCH = 0
+    ms_p, (p_ids, p_sims, _) = _ms_runs(lambda: hp.knn_batch(batch[:8], 10),
+                                        8, runs=1)
+    mode = hp._pool.mode
+    hp.close()
+    if not (mode == "thread" and np.array_equal(p_ids, c_ids)
+            and np.array_equal(p_sims, c_sims)):
+        raise AssertionError(f"p={p}: the {mode} shard pool differs from the "
+                             "sequential chain")
+    rows.append((f"sharded_amih host walk + K1, chain, p={p} B=8 K=10", ms_c))
+    rows.append((f"sharded_amih host walk + K1, thread pool, p={p} B=8 "
+                 f"K=10", ms_p))
+    log(f"  sharded_amih host walk + K1 p={p} B=8 K=10 (build {t_build:.1f} "
+        f"s): the thread pool ({N_SHARDS} workers) equal to the sequential "
+        f"chain; {ms_p:.2f} ms/query (chain {ms_c:.2f}) {tag}")
+
+
 # ------------------------------------------------------------------- K7
 # Dense rates of one H100 SXM for the K7 bound (NVIDIA's data sheet): bf16
 # on the tensor cores, float32 on the CUDA cores.
@@ -1629,7 +1856,8 @@ def main() -> int:
             for c, v in mod.LAUNCHES.items():
                 total[c] = total.get(c, 0) + v
 
-    amih_counts, scan_counts = {}, {}
+    amih_counts, scan_counts, shard_counts = {}, {}, {}
+    shard_rows = []                       # phase 3d (label, ms/query)
     walk_shapes = {}                      # K2/K3 launches by wrapper and B
     captured = {}
     captured_scan = {}
@@ -1790,6 +2018,7 @@ def main() -> int:
         with Recorder(sites(dp, Recorder.WALKS)
                       + [(ops, "gather_verify_grouped")]) as krec:
             h_ids, h_sims = host.knn_batch(batch[:4], 10)
+        h_launches = host.verify_launches
         captured[(p, 4, 10, "gather_verify_grouped")] = krec.calls.get(
             "gather_verify_grouped", [])
         t_host = time.perf_counter() - t0
@@ -1804,6 +2033,14 @@ def main() -> int:
         for key, n in walk_rec.counts.items():
             walk_shapes[key] = walk_shapes.get(key, 0) + n
         add_counts(amih_counts)
+
+        zero_counts()                     # path d: shards and pipeline
+        t0 = time.perf_counter()
+        shard_path(p, m, db, batch, singles, eng, host,
+                   (h_ids, h_sims, h_launches), dev=dev, tag=tag, chk=chk,
+                   want_topk=want_topk, rows=shard_rows)
+        add_counts(shard_counts)
+        log(f"  phase 3d p={p}: {time.perf_counter() - t0:.1f} s")
         del host, eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -1839,9 +2076,14 @@ def main() -> int:
             f"{name} B={rows}: {n}"
             for (name, rows), n in sorted(walk_shapes.items())))
     log(f"  kernel launches, linear-scan path: {scan_counts}")
+    log(f"  kernel launches, shard and pipeline path (3d): {shard_counts}")
     for name, cnt in launches.items():
         if cnt == 0:
             raise AssertionError(f"kernel {name} never ran on its main path")
+    for name in ("verify_grouped", "probe_walk", "probe_extract",
+                 "hamming_scan_topk"):
+        if shard_counts.get(name, 0) == 0:
+            raise AssertionError(f"kernel {name} never ran on path 3d")
 
     # ---- phase 4: kernels vs plain on main-path operands, timed
     log(f"phase 4: kernels vs plain at main-path shapes, times {tag}")
@@ -2035,6 +2277,8 @@ def main() -> int:
         log(f"  K1 p={k1_main[0][0]}: {e['ms']:.6f} ms (bound "
             f"{e['bound_ms']:.6f}), launch floor (B=1, C=8) "
             f"{e['floor_ms']:.6f} ms")
+    for label, ms in shard_rows:
+        log(f"  3d {label}: {ms:.4f} ms/query")
     r = retrieval
     log(f"  retrieval (gemma-2b, p=64, K=10): B=64 {r['ms_b64']:.4f}, B=1 "
         f"{r['ms_b1']:.4f} ms/query; encode "

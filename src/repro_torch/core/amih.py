@@ -46,7 +46,10 @@ is a probe -> verify -> bucket -> emit pipeline:
 (one per (z-group, tuple-step) unless a block exceeds the element budget).
 
 A port of the reference's ``core/amih.py``: the same index, the same walk,
-the same statistics. The pipelined verify (``overlap``) is not ported yet.
+the same statistics. ``knn_batch(..., overlap=VerifyOverlap())``
+(``repro_torch.pipeline.overlap``) pipelines each z-group's host walk one
+tuple step deep: step t's grouped verify runs while the host probes step
+t + 1.
 """
 
 from __future__ import annotations
@@ -364,8 +367,10 @@ class AMIHIndex:
         buckets, so per-query results and counters are identical to
         ``knn`` run query-by-query.
 
-        ``overlap`` (the reference's pipelined verify) is not ported yet
-        and raises ``NotImplementedError``.
+        ``overlap`` (a ``repro_torch.pipeline.VerifyOverlap``) pipelines
+        each group's host walk one tuple step deep (see
+        pipeline/overlap.py); the device walk has no host loop to overlap
+        and ignores it.
         """
         q_words = np.ascontiguousarray(
             np.atleast_2d(np.asarray(q_words, dtype=WORD_DTYPE))
@@ -471,15 +476,9 @@ class AMIHIndex:
         one-launch-per-z-group shape): results and the early-termination
         contract are identical, but ``enumeration_cap`` is a no-op there —
         the device path bounds work through ``probe_stream_cap`` and the
-        fused scan.
-
-        ``overlap`` (the reference's pipelined verify, ROADMAP A7) is not
-        ported yet: anything but ``None`` raises."""
-        if overlap is not None:
-            raise NotImplementedError(
-                "overlap= (the pipelined verify) is not ported yet: "
-                "ROADMAP A7"
-            )
+        fused scan, and ``overlap`` is ignored (no host loop to overlap).
+        With ``overlap`` each group's host loop is software-pipelined one
+        tuple step deep instead (pipeline/overlap.py)."""
         if self.probe_backend == "device":
             from .probe_device import run_groups_device
 
@@ -496,9 +495,15 @@ class AMIHIndex:
         done_states: List[_QueryState] = []
         for z, qis in groups.items():
             states = [self._make_state(q_words[qi], qi, stats) for qi in qis]
-            self._run_group_sequential(
-                z, states, k, enumeration_cap, stop_below, on_done
-            )
+            if overlap is not None:
+                overlap.run_group(
+                    self, z, states, k, enumeration_cap, stop_below,
+                    on_done=on_done,
+                )
+            else:
+                self._run_group_sequential(
+                    z, states, k, enumeration_cap, stop_below, on_done
+                )
             done_states.extend(states)
         return done_states
 
@@ -628,6 +633,33 @@ class AMIHIndex:
             stats=None if stats is None else stats[qi],
         )
 
+    def search_radius(
+        self,
+        q_words: np.ndarray,
+        r1: int,
+        r2: int,
+        stats: Optional[AMIHStats] = None,
+        enumeration_cap: Optional[int] = None,
+    ) -> np.ndarray:
+        """The (r1, r2)-near neighbor problem (Def. 4): all codes with
+        Hamming tuple <= (r1, r2) componentwise. Returns sorted ids."""
+        q_words = np.asarray(q_words, dtype=WORD_DTYPE)
+        state = self._make_state(q_words, 0, None)
+        state.stats = stats
+        fresh = self._probe_tables_for_tuple(state, r1, r2, enumeration_cap)
+        if fresh.size:
+            if stats is not None:
+                stats.verified += fresh.size
+            self._verify_and_bucket([state], [fresh])
+        matches = [
+            np.concatenate(v)
+            for (e1, e2), v in state.pending.items()
+            if e1 <= r1 and e2 <= r2
+        ]
+        if not matches:
+            return np.empty(0, dtype=np.int64)
+        return np.sort(np.concatenate(matches)) + self.id_offset
+
     # ------------------------------------------------------------ private
     def _probe_tables_for_tuple(
         self,
@@ -726,7 +758,9 @@ class AMIHIndex:
     ) -> List[np.ndarray]:
         """Backend half of ``_verify_and_bucket``: the grouped tuple
         verification alone, returning per-query packed-key arrays. Reads
-        only the index and the DB; the mutable bucketing is separate."""
+        only the index and the DB — safe to run on a worker thread while
+        the main thread probes the next tuple step (pipeline/overlap.py);
+        the mutable bucketing stays on the caller's thread."""
         tr = _obs.current()
         if not tr.enabled:
             if self.verify_backend == "cuda":
@@ -795,8 +829,9 @@ class AMIHIndex:
         return out
 
     def _verify_group_cuda(
-        self, states: List[_QueryState], blocks: List[np.ndarray]
-    ) -> List[np.ndarray]:
+        self, states: List[_QueryState], blocks: List[np.ndarray],
+        deferred: bool = False,
+    ):
         """Grouped-verify kernel launches for the z-group: candidate rows
         are gathered inside the kernel from the resident DB through a
         padded (B_g, C_max) index matrix and come back as packed bucket
@@ -814,7 +849,10 @@ class AMIHIndex:
         column chunks of an oversized block resolve eagerly, because
         each in-flight launch holds its padded buffers live and an
         unbounded queue would rebuild exactly the footprint the budget
-        exists to prevent.
+        exists to prevent. ``deferred=True`` (pipeline/overlap.py) starts
+        each launch's copy to pinned host memory at once, behind a CUDA
+        event, and returns a callable that waits on those events and
+        returns the keys.
         """
         from ..kernels import ops
 
@@ -877,6 +915,8 @@ class AMIHIndex:
                 p=self.p,
                 device=self.device,
             )
+            if deferred:
+                handle.copy_async()
 
             def resolve_grouped(row=i, handle=handle, sizes=[b.size for b in sub_blocks]):
                 keys = handle.get()
@@ -887,6 +927,10 @@ class AMIHIndex:
             if len(pending) >= 2:
                 pending.pop(0)()
             i = j
-        for resolve in pending:
-            resolve()
-        return out
+
+        def finish():
+            for resolve in pending:
+                resolve()
+            return out
+
+        return finish if deferred else finish()

@@ -4,7 +4,7 @@ backends (a port of the reference's ``core/engine.py``).
     engine = make_engine("amih", db_words, p)          # on the CUDA device
     ids, sims, stats = engine.knn_batch(q_words, k)   # q_words: (B, W)
 
-Backends ported so far:
+Backends:
 
   - "linear_scan" — exhaustive Eq. 3 scan: on the CUDA device
                     (``compute_backend="cuda"``, the default: the K4 scoring
@@ -15,14 +15,17 @@ Backends ported so far:
                     (``probe_backend="device"``, the default: ONE kernel
                     launch per batch plus at most one scan launch), or the
                     host walk (``probe_backend="host"``) with
-                    ``verify_backend="cuda"`` (the default) or ``"numpy"``.
+                    ``verify_backend="cuda"`` (the default) or ``"numpy"``;
+                    ``overlap_verify=True`` pipelines the host walk's
+                    verify (``repro_torch.pipeline.VerifyOverlap``).
+  - "single_table" — one CSR-sorted table probed in the paper's tuple
+                    order (§4); host code, practical for p <= 64.
+  - "sharded_scan" / "sharded_amih" — the row-sharded engines of
+                    ``repro_torch.shard``, registered on first use.
 
-Backends and options of layers not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: ``single_table`` (A5),
-``sharded_scan``/``sharded_amih`` (A6), ``cluster`` (A9) and
-``overlap_verify=True`` (A7).
+``cluster`` (ROADMAP A9) is not ported and raises ``NotImplementedError``.
 
-Both backends are EXACT and return, for every row, the reference's ids and
+Every backend is EXACT and returns, for every row, the reference's ids and
 float64 sims. Entry points that need a device take ``device=``: ``None``
 means the CUDA device (and raises where there is none); ``"cpu"`` runs the
 kernels' plain PyTorch versions. Only the numpy scan and the host walk
@@ -42,8 +45,15 @@ import numpy as np
 from ..kernels import ops
 from ..obs import trace as _obs
 from .amih import AMIHIndex, AMIHStats
-from .linear_scan import sims_batch_against_db, sims_for_ids, topk_from_sims
-from .packing import WORD_DTYPE, n_words
+from .enumeration import EnumerationCapExceeded
+from .linear_scan import (
+    sims_against_db,
+    sims_batch_against_db,
+    sims_for_ids,
+    topk_from_sims,
+)
+from .packing import WORD_DTYPE, n_words, popcount
+from .single_table import SearchStats, SingleTableIndex
 
 __all__ = [
     "ENGINES",
@@ -58,24 +68,8 @@ __all__ = [
 
 # backends of layers the port does not have yet -> their ROADMAP item
 _NOT_PORTED = {
-    "single_table": "A5",
-    "sharded_scan": "A6",
-    "sharded_amih": "A6",
     "cluster": "A9",
 }
-
-
-@dataclass
-class SearchStats:
-    """Per-query counters of the exhaustive scan (the reference's
-    single-table ``SearchStats``; the scan fills ``retrieved``)."""
-
-    probes: int = 0
-    retrieved: int = 0
-    tuples_processed: int = 0
-    max_radius: int = 0
-    exceeded_rhat: bool = False
-    fell_back_to_scan: bool = False
 
 
 @dataclass
@@ -84,7 +78,10 @@ class EngineStats:
     lazily-aggregated totals (``aggregate`` sums every numeric counter;
     bools count occurrences; ``max_radius`` aggregates with max).
     ``cache_hits`` counts rows answered from the engine's hot-query cache;
-    ``cache_info`` snapshots the process-wide probing caches. Streaming
+    ``cache_info`` snapshots the process-wide probing caches. Sharded
+    backends fill ``shards`` and ``per_shard`` (one dict per shard: rows
+    held, candidates, launches, early stops and the ``"device"`` its work
+    ran on); ``per_host`` is the cluster tier's (not ported). Streaming
     serving (``pipeline.stream``) fills ``queue_depth`` (queries still
     waiting behind the step) and ``latency_ms`` (rolling answered-query
     latency percentiles); both keep their defaults for direct
@@ -93,6 +90,9 @@ class EngineStats:
     backend: str
     queries: int = 0
     per_query: List[Optional[object]] = field(default_factory=list)
+    shards: int = 0
+    per_shard: List[Dict[str, object]] = field(default_factory=list)
+    per_host: List[Dict[str, object]] = field(default_factory=list)
     cache_hits: int = 0
     cache_info: Dict[str, int] = field(default_factory=dict)
     queue_depth: int = 0
@@ -199,7 +199,20 @@ def make_engine(
                         ``probe_backend`` ("device" | "host"),
                         ``probe_fused``, ``probe_stream_cap``,
                         ``enumeration_cap``, ``query_cache_size``,
-                        ``device``.
+                        ``overlap_verify``, ``device``.
+      - "single_table" — ``enumeration_cap``.
+      - "sharded_scan" — ``num_shards`` | ``plan``, ``devices``,
+                        ``chunk``.
+      - "sharded_amih" — the sharding knobs plus ``m``,
+                        ``verify_backend``, ``probe_backend``,
+                        ``probe_fused``, ``probe_stream_cap``,
+                        ``enumeration_cap``, ``probe_workers``,
+                        ``probe_mode``, ``prime_bound``.
+
+    The sharded backends live in ``repro_torch.shard`` and register on
+    first use. Engines that hold workers ("amih" with ``overlap_verify``,
+    "sharded_amih" with ``probe_workers``) expose ``close()``; GC closes
+    them too.
 
     ``tracer=`` (a ``repro_torch.obs.trace.Tracer``) is installed as the
     process tracer and attached to the engine as ``engine.tracer``.
@@ -213,6 +226,10 @@ def make_engine(
             f"ROADMAP {_NOT_PORTED[backend]}"
         )
     cls = ENGINES.get(backend)
+    if cls is None and backend.startswith("sharded"):
+        from .. import shard  # noqa: F401  (registers them)
+
+        cls = ENGINES.get(backend)
     if cls is None:
         raise ValueError(
             f"unknown search backend {backend!r}; "
@@ -346,6 +363,87 @@ class LinearScanEngine(SearchEngine):
 
 
 @register_engine
+class SingleTableEngine(SearchEngine):
+    """Single hash table (paper §4); exact for p <= 64. Host code.
+
+    The raw index has no cost guard: on sparse occupancy a single tuple's
+    bucket enumeration is C(z, r1)*C(p-z, r2) — combinatorial. The engine
+    caps it (default ``max(8n, 16384)``) and degrades the affected query
+    to an exact linear scan (the paper's §5 observation), flagged in
+    ``SearchStats.fell_back_to_scan``. Counters accumulated before the
+    fallback are kept — they are probes actually performed.
+    """
+
+    name = "single_table"
+
+    def __init__(self, index: SingleTableIndex, db_words, enumeration_cap):
+        self.index = index
+        self.p = index.p
+        self.db_words = np.ascontiguousarray(db_words, dtype=WORD_DTYPE)
+        self.enumeration_cap = enumeration_cap
+
+    @classmethod
+    def build(
+        cls,
+        db_words: np.ndarray,
+        p: int,
+        enumeration_cap: Optional[int] = None,
+        **cfg: Any,
+    ) -> "SingleTableEngine":
+        if cfg:
+            raise TypeError(f"unknown single_table options: {sorted(cfg)}")
+        n = np.asarray(db_words).shape[0]
+        if enumeration_cap is None:
+            enumeration_cap = max(8 * n, 1 << 14)
+        return cls(SingleTableIndex.build(db_words, p), db_words,
+                   enumeration_cap)
+
+    @property
+    def n(self) -> int:
+        return self.index.n
+
+    def knn_batch(self, q_words, k):
+        q = self._check_queries(q_words, self.p)
+        B = q.shape[0]
+        k_eff = min(k, self.n)
+        with _obs.current().span("engine.knn_batch", cat="engine",
+                                 backend=self.name, B=B, k=k_eff):
+            return self._knn_batch_traced(q, B, k_eff)
+
+    def _knn_batch_traced(self, q, B, k_eff):
+        zs = popcount(q)
+        ids_out = np.empty((B, k_eff), dtype=np.int64)
+        sims_out = np.empty((B, k_eff), dtype=np.float64)
+        per_query: List[SearchStats] = []
+        for i in range(B):
+            st = SearchStats()
+            if zs[i] == 0:
+                # Zero-norm query: cosine is undefined, every code scores
+                # exactly 0.0, so any k ids are a correct answer — and the
+                # table would enumerate C(p, r2) buckets per tuple trying
+                # to find them. Emit the deterministic tie order directly.
+                ids_out[i] = np.arange(k_eff, dtype=np.int64)
+                sims_out[i] = 0.0
+            else:
+                try:
+                    ids_out[i], sims_out[i] = self.index.knn(
+                        q[i], k_eff, stats=st,
+                        enumeration_cap=self.enumeration_cap,
+                    )
+                except EnumerationCapExceeded:
+                    # probing has lost to exhaustive verification for
+                    # this query.
+                    st.fell_back_to_scan = True
+                    ids_out[i], sims_out[i] = topk_from_sims(
+                        sims_against_db(q[i], self.db_words), k_eff
+                    )
+            per_query.append(st)
+        return ids_out, sims_out, EngineStats(
+            backend=self.name, queries=B, per_query=per_query
+        )
+
+
+@register_engine
 class AMIHEngine(SearchEngine):
     """Angular multi-index hashing (paper §5): batch-aware probing with
     per-(p, z) probing-sequence sharing, on the host walk or the device
@@ -361,16 +459,26 @@ class AMIHEngine(SearchEngine):
     cached counters are replayed (copied) so per-query accounting stays
     identical to an uncached run. Duplicate rows inside one batch are
     computed once.
+
+    ``overlap_verify=True`` pipelines each z-group's host walk one tuple
+    step deep (``repro_torch.pipeline.VerifyOverlap``): step t's grouped
+    verify runs on a side CUDA stream (a worker thread off the card)
+    while the host probes step t + 1. Results are bit-identical to the
+    sequential loop; probe-side counters of a query that finishes at
+    step t may include one extra (discarded) probing step. The device
+    walk has no host loop to overlap and ignores it.
     """
 
     name = "amih"
 
     def __init__(self, index: AMIHIndex, enumeration_cap,
-                 query_cache_size: int = 256):
+                 query_cache_size: int = 256, overlap_verify: bool = False):
         self.index = index
         self.p = index.p
         self.enumeration_cap = enumeration_cap
         self.query_cache_size = query_cache_size
+        self.overlap_verify = overlap_verify
+        self._overlap = None   # VerifyOverlap, created on first use
         # (q_words bytes, k) -> (ids row, sims row, AMIHStats); ordered
         # oldest-first so popitem(last=False) evicts the LRU entry.
         self._query_cache: "OrderedDict[Tuple[bytes, int], tuple]" = (
@@ -396,11 +504,6 @@ class AMIHEngine(SearchEngine):
     ) -> "AMIHEngine":
         if cfg:
             raise TypeError(f"unknown amih options: {sorted(cfg)}")
-        if overlap_verify:
-            raise NotImplementedError(
-                "overlap_verify=True (the pipelined verify) is not ported "
-                "yet: ROADMAP A7"
-            )
         n = np.asarray(db_words).shape[0]
         if enumeration_cap is None:
             enumeration_cap = max(8 * n, 1 << 14)
@@ -409,7 +512,28 @@ class AMIHEngine(SearchEngine):
             probe_backend=probe_backend, probe_stream_cap=probe_stream_cap,
             probe_fused=probe_fused, device=device,
         )
-        return cls(index, enumeration_cap, query_cache_size)
+        return cls(index, enumeration_cap, query_cache_size, overlap_verify)
+
+    def _overlap_runner(self):
+        """The engine's VerifyOverlap (lazily created)."""
+        if self._overlap is None and self.overlap_verify:
+            from ..pipeline.overlap import VerifyOverlap
+
+            self._overlap = VerifyOverlap()
+        return self._overlap
+
+    def close(self) -> None:
+        """Release the overlap worker thread and side streams
+        (idempotent; also run on GC)."""
+        overlap, self._overlap = self._overlap, None
+        if overlap is not None:
+            overlap.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass   # interpreter shutdown: executors may already be gone
 
     @property
     def n(self) -> int:
@@ -448,6 +572,7 @@ class AMIHEngine(SearchEngine):
             m_ids, m_sims = self.index.knn_batch(
                 q[rows], k_eff, stats=miss_stats,
                 enumeration_cap=self.enumeration_cap,
+                overlap=self._overlap_runner(),
             )
             for j, (key, idxs) in enumerate(miss_keys.items()):
                 for i in idxs:

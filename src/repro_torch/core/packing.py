@@ -71,6 +71,19 @@ def hamming_tuples(q_words: np.ndarray, db_words: np.ndarray):
     return r10, r01
 
 
+def codes_to_ints(words: np.ndarray, p: int) -> np.ndarray:
+    """Packed (n, W) codes -> python-int-exact uint64 values. Requires p <= 64."""
+    if p > 64:
+        raise ValueError(f"codes_to_ints requires p <= 64, got {p}")
+    words = np.asarray(words, dtype=np.uint64)
+    if words.ndim == 1:
+        words = words[None, :]
+    vals = words[:, 0].copy()
+    if words.shape[1] > 1:
+        vals |= words[:, 1] << np.uint64(32)
+    return vals
+
+
 def extract_substring(words: np.ndarray, lo: int, hi: int) -> np.ndarray:
     """Extract bit range [lo, hi) of each packed code as uint64 values.
 

@@ -71,6 +71,8 @@ __all__ = [
     "get_schedule_stack",
     "resolve_groups_device",
     "run_groups_device",
+    "schedule_cache_clear",
+    "schedule_cache_info",
     "schedule_cache_stats",
 ]
 
@@ -305,6 +307,23 @@ def get_schedule(
         while len(_SCHED_CACHE) > _SCHED_CACHE_MAX:
             _SCHED_CACHE.popitem(last=False)
         return sched
+
+
+def schedule_cache_clear() -> None:
+    """Empty the process-wide schedule cache and schedule-stack cache."""
+    with _SCHED_LOCK:
+        _SCHED_CACHE.clear()
+    with _STACK_LOCK:
+        _STACK_CACHE.clear()
+
+
+def schedule_cache_info() -> Tuple[int, int]:
+    """(entries, total stream entries) of the schedule cache."""
+    with _SCHED_LOCK:
+        return (
+            len(_SCHED_CACHE),
+            sum(s.s_len for s in _SCHED_CACHE.values()),
+        )
 
 
 def schedule_cache_stats() -> Dict[str, int]:

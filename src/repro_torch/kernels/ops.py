@@ -124,15 +124,29 @@ def _pad_rows(a, Bp: int, fill=0) -> np.ndarray:
 # ------------------------------------------------------------ grouped verify
 class PendingKeys:
     """Handle for an in-flight grouped-verify launch: ``get()`` copies the
-    unpadded (B, C) keys to the host (waiting for the kernel)."""
+    unpadded (B, C) keys to the host (waiting for the kernel).
+    ``copy_async()`` starts that copy on the current stream instead, into
+    pinned memory, and records a CUDA event after it; ``get()`` then waits
+    on that event alone, never on the whole device."""
 
-    __slots__ = ("_keys", "_B", "_C", "_dkey")
+    __slots__ = ("_keys", "_B", "_C", "_dkey", "_host", "_event")
 
     def __init__(self, keys, B: int, C: int, dkey: str = "cpu"):
         self._keys = keys
         self._B = B
         self._C = C
         self._dkey = dkey
+        self._host = None
+        self._event = None
+
+    def copy_async(self) -> "PendingKeys":
+        keys = self._keys
+        if isinstance(keys, np.ndarray) or keys.device.type != "cuda":
+            return self
+        self._host = keys[: self._B, : self._C].to("cpu", non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record()
+        return self
 
     def get(self) -> np.ndarray:
         keys = self._keys
@@ -140,7 +154,11 @@ class PendingKeys:
             return keys
         tr = _obs.current()
         t0 = _obs.now_us() if tr.enabled else 0.0
-        out = keys[: self._B, : self._C].cpu().numpy()
+        if self._event is not None:
+            self._event.synchronize()
+            out = self._host.numpy()
+        else:
+            out = keys[: self._B, : self._C].cpu().numpy()
         if tr.enabled:
             tr.record("launch.verify_grouped.resolve", t0, _obs.now_us(),
                       cat="kernel", device=self._dkey)

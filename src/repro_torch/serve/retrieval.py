@@ -11,14 +11,18 @@ one ``knn_batch`` call, ``search`` is the B = 1 convenience, and
 next batch encoding while this one searches) or drained at once.
 
 Backends: ``"amih"`` (the device walk by default; the host walk with
-``probe_backend="host"`` and ``verify_backend="cuda"`` or ``"numpy"``)
-and ``"linear_scan"`` (``compute_backend="cuda"`` or ``"numpy"``). The
-encoder, AQBC and the engine run on ``RetrievalConfig.device``: None is
-the CUDA device (it raises without one), ``"cpu"`` runs every kernel's
-plain version. The encoder's parameters must lie on that device.
-``single_table`` (ROADMAP A5), the sharded backends (A6), ``pipelined``
-(A7) and ``cluster`` (A9) are not ported and raise
-``NotImplementedError``.
+``probe_backend="host"`` and ``verify_backend="cuda"`` or ``"numpy"``),
+``"linear_scan"`` (``compute_backend="cuda"`` or ``"numpy"``),
+``"single_table"`` (host code) and the row-sharded ``"sharded_scan"`` and
+``"sharded_amih"`` (``num_shards``, ``devices``). ``pipelined=True``
+turns on the engine-level pipelining: the AMIH verify overlap, and for
+``"sharded_amih"`` the shard-probe pool (one worker per shard unless
+``probe_workers`` says otherwise). The encoder, AQBC and the engine run
+on ``RetrievalConfig.device``: None is the CUDA device (it raises without
+one), ``"cpu"`` runs every kernel's plain version; the sharded backends
+place their shards on ``devices`` (default: that device). The encoder's
+parameters must lie on that device. ``cluster`` (ROADMAP A9) is not
+ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,7 +56,8 @@ class RetrievalConfig:
     aqbc_iters: int = 15
     m_tables: Optional[int] = None    # None -> paper's p/log2(n)
     batch_size: int = 32              # encode batch (padded to it)
-    # engine backend: "amih" or "linear_scan"
+    # engine backend: "amih", "linear_scan", "single_table",
+    # "sharded_scan" or "sharded_amih"
     backend: str = "amih"
     # AMIH: the device walk ("device", one walk launch per batch) or the
     # host walk ("host") with the grouped verify on the card ("cuda", the
@@ -66,7 +71,17 @@ class RetrievalConfig:
     compute_backend: str = "cuda"
     enumeration_cap: Optional[int] = None
     search_batch_size: int = 32       # queued queries per knn_batch step
-    pipelined: bool = False           # not ported: ROADMAP A7
+    # the sharded backends: shard count (None: one per CUDA device) and
+    # the devices the shards are placed on, round-robin (None: ``device``)
+    num_shards: Optional[int] = None
+    devices: Optional[Tuple[object, ...]] = None
+    # engine-level pipelining: "amih" gets the verify overlap
+    # (overlap_verify), "sharded_amih" the shard-probe pool (probe_workers;
+    # None -> one worker per shard; "process" or "thread" workers, the
+    # CUDA verify forcing threads); results bit-identical to sequential
+    pipelined: bool = False
+    probe_workers: Optional[int] = None
+    probe_mode: str = "auto"
     cluster: bool = False             # not ported: ROADMAP A9
     # True installs an enabled port Tracer at build_index (a float in
     # (0, 1] samples top-level spans at that probability); spans land on
@@ -155,10 +170,6 @@ class RetrievalService:
         tracing on, the three steps record ``retrieval.encode``,
         ``retrieval.aqbc`` and ``retrieval.index`` spans."""
         rc = self.rcfg
-        if rc.pipelined:
-            raise NotImplementedError(
-                "RetrievalConfig(pipelined=True) is not ported yet: "
-                "ROADMAP A7")
         if rc.cluster:
             raise NotImplementedError(
                 "RetrievalConfig(cluster=True) is not ported yet: "
@@ -173,19 +184,33 @@ class RetrievalService:
             self.rotation = model.rotation
             self.db_words = self._codes(x)       # ends in a host copy
         cfg: Dict[str, object] = {}
+        amih_cfg = {
+            "m": rc.m_tables,
+            "verify_backend": rc.verify_backend,
+            "enumeration_cap": rc.enumeration_cap,
+            "probe_backend": rc.probe_backend,
+            "probe_stream_cap": rc.probe_stream_cap,
+            "probe_fused": rc.probe_fused,
+        }
+        shard_cfg = {
+            "num_shards": rc.num_shards,
+            "devices": (rc.devices if rc.devices is not None
+                        else (self.device,)),
+        }
         if rc.backend == "amih":
-            cfg = {
-                "m": rc.m_tables,
-                "verify_backend": rc.verify_backend,
-                "enumeration_cap": rc.enumeration_cap,
-                "probe_backend": rc.probe_backend,
-                "probe_stream_cap": rc.probe_stream_cap,
-                "probe_fused": rc.probe_fused,
-                "device": rc.device,
-            }
+            cfg = {**amih_cfg, "overlap_verify": rc.pipelined,
+                   "device": rc.device}
         elif rc.backend == "linear_scan":
             cfg = {"compute_backend": rc.compute_backend,
                    "device": rc.device}
+        elif rc.backend == "single_table":
+            cfg = {"enumeration_cap": rc.enumeration_cap}
+        elif rc.backend == "sharded_scan":
+            cfg = shard_cfg
+        elif rc.backend == "sharded_amih":
+            cfg = {**shard_cfg, **amih_cfg,
+                   "probe_workers": rc.probe_workers,
+                   "probe_mode": rc.probe_mode}
         if rc.trace:
             sample = (float(rc.trace) if isinstance(rc.trace, float)
                       else 1.0)
@@ -194,6 +219,10 @@ class RetrievalService:
         with tr.span("retrieval.index", cat="serve"):
             self.engine = make_engine(rc.backend, self.db_words,
                                       rc.code_bits, **cfg)
+        if (rc.backend == "sharded_amih" and rc.pipelined
+                and rc.probe_workers is None):
+            # pipelined default: one probe worker per (non-empty) shard
+            self.engine.probe_workers = len(self.engine.indexes)
         index = getattr(self.engine, "index", None)
         trace = model.objective_trace
         return {

@@ -16,6 +16,7 @@ from _hypothesis_compat import given, settings, st
 
 from repro.core import pack_bits
 from repro.core.amih import AMIHIndex as RIndex
+from repro.core.amih import AMIHStats as RStats
 from repro.core.engine import make_engine as r_make
 from repro.obs.metrics import REGISTRY as R_REG
 from repro_torch.convert import index_from_reference, index_state
@@ -181,19 +182,25 @@ def test_linear_scan_engine_equals_reference():
 
 
 def test_layers_not_ported_raise():
-    db, _ = _data(64, 32, 1, seed=0)
-    for backend, item in (("single_table", "A5"), ("sharded_amih", "A6"),
-                          ("sharded_scan", "A6"), ("cluster", "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_make(backend, db, 32)
-    with pytest.raises(NotImplementedError, match="A7"):
-        t_make("amih", db, 32, overlap_verify=True)
+    """Only the cluster tier (A9) is still refused; the backends and the
+    option that slice 8 lifted build and run."""
+    db, q = _data(64, 32, 2, seed=0)
+    with pytest.raises(NotImplementedError, match="A9"):
+        t_make("cluster", db, 32)
     with pytest.raises(ValueError, match="pallas"):
         t_make("linear_scan", db, 32, compute_backend="pallas")
-    eng = t_make("amih", db, 32, device="cpu")
-    assert isinstance(eng, AMIHEngine)
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.index.knn_batch(db[:1], 3, overlap=object())
+    for backend, cfg in (("single_table", {}),
+                         ("sharded_amih", dict(num_shards=2, m=2,
+                                               devices=["cpu"])),
+                         ("sharded_scan", dict(num_shards=2,
+                                               devices=["cpu"]))):
+        ids, sims, _ = t_make(backend, db, 32, **cfg).knn_batch(q, 3)
+        assert ids.shape == sims.shape == (2, 3)
+    eng = t_make("amih", db, 32, device="cpu", probe_backend="host",
+                 overlap_verify=True)
+    assert isinstance(eng, AMIHEngine) and eng.overlap_verify
+    assert eng.knn_batch(q, 3)[0].shape == (2, 3)
+    eng.close()
 
 
 # ------------------------------------------ AMIH extraction (slice 6)
@@ -272,3 +279,107 @@ def test_pooled_maps_hold_pos_inf_after_batches_bails_and_errors(
     bufs = _pooled_maps()
     assert len(bufs) == len(held) - 1           # the batch's map is gone
     assert all(bool((b == POS_INF).all()) for b in bufs)
+
+
+# ------------------------------------------ slice 8: the rest of the API
+# test_search_exactness.py's draw for Def. 4, on fixed seeds: p = 32,
+# n = 300 codes at flip_prob 0.15, m = 3, one query
+RADIUS_CASES = [(seed, r1, r2) for seed in (0, 7, 4242, 2**31 - 8)
+                for r1, r2 in ((0, 0), (1, 2), (3, 1), (6, 6))]
+
+
+@pytest.mark.parametrize("seed,r1,r2", RADIUS_CASES)
+@pytest.mark.parametrize("vb", ["numpy", "cuda"])
+def test_search_radius_equals_reference(seed, r1, r2, vb):
+    from repro.core.packing import hamming_tuples
+    from repro.data import synthetic as r_syn
+
+    p, n = 32, 300
+    db_bits = r_syn.synthetic_binary_codes(n, p, seed=seed, flip_prob=0.15)
+    q_bits = r_syn.synthetic_queries(db_bits, 1, seed=seed + 7)[0]
+    db, q = pack_bits(db_bits), pack_bits(q_bits)
+    r_idx = RIndex.build(db, p, m=3, id_offset=5,
+                         verify_backend="pallas" if vb == "cuda" else vb)
+    t_idx = TIndex.build(db, p, m=3, id_offset=5, verify_backend=vb,
+                         probe_backend="host", device="cpu")
+    r_st, t_st = RStats(), TStats()
+    want = r_idx.search_radius(q, r1, r2, stats=r_st)
+    got = t_idx.search_radius(q, r1, r2, stats=t_st)
+    assert np.array_equal(got, want) and got.dtype == np.int64
+    assert asdict(t_st) == asdict(r_st)
+    assert r_idx.verify_launches == t_idx.verify_launches
+    e1, e2 = hamming_tuples(q, db)
+    assert np.array_equal(got, np.flatnonzero((e1 <= r1) & (e2 <= r2)) + 5)
+
+
+def test_schedule_cache_info_and_clear():
+    from repro_torch.core import probe_device as t_pd
+
+    t_pd.schedule_cache_clear()
+    assert t_pd.schedule_cache_info() == (0, 0)
+    db1, q = _data(200, 32, 4, seed=1)
+    db2, _ = _data(300, 32, 4, seed=2)
+    a = TIndex.build(db1, 32, m=2, device="cpu")
+    b = TIndex.build(db2, 32, m=2, device="cpu")
+    a.knn_batch(q, 3)
+    entries, stream = t_pd.schedule_cache_info()
+    assert entries > 0 and stream > 0
+    b.knn_batch(q, 3)       # same (p, m, widths, z) keys: no new entries
+    assert t_pd.schedule_cache_info()[0] == entries
+    stats = t_pd.schedule_cache_stats()
+    assert (stats["schedule_entries"], stats["schedule_stream"]) == \
+        (entries, stream)
+    t_pd.schedule_cache_clear()
+    assert t_pd.schedule_cache_info() == (0, 0)
+
+
+# (p, n, B, k, enumeration_cap): p <= 64; a cap of 1 sends every query
+# past its first tuple to the exact scan
+SINGLE_TABLE_CASES = [(16, 300, 10, 8, None), (32, 500, 12, 10, None),
+                      (64, 400, 8, 5, None), (32, 200, 6, 7, 1),
+                      (24, 50, 4, 80, None)]
+
+
+@pytest.mark.parametrize("p,n,B,k,cap", SINGLE_TABLE_CASES)
+def test_single_table_engine_equals_reference(p, n, B, k, cap):
+    from repro.data import synthetic as r_syn
+
+    bits = r_syn.synthetic_binary_codes(n, p, seed=p + n)
+    db = pack_bits(bits)
+    q = pack_bits(r_syn.synthetic_queries(bits, B, seed=p + n + 1))
+    q[1] = 0                                        # a zero-norm query
+    r_eng = r_make("single_table", db, p, enumeration_cap=cap)
+    t_eng = t_make("single_table", db, p, enumeration_cap=cap)
+    ri, rs, rst = r_eng.knn_batch(q, k)
+    ti, ts, tst = t_eng.knn_batch(q, k)
+    assert np.array_equal(ri, ti) and np.array_equal(rs, ts)
+    assert [asdict(s) for s in rst.per_query] == \
+        [asdict(s) for s in tst.per_query]
+    if cap == 1:
+        assert all(s.fell_back_to_scan for i, s in enumerate(tst.per_query)
+                   if i != 1)
+    with pytest.raises(TypeError):
+        t_make("single_table", db, p, m=2)
+
+
+def test_single_table_index_refuses_long_codes():
+    from repro_torch.core.single_table import SingleTableIndex
+
+    db, _ = _data(20, 96, 1, seed=0)
+    with pytest.raises(ValueError, match="p <= 64"):
+        SingleTableIndex.build(db, 96)
+
+
+@pytest.mark.parametrize("l,k,probes", [(10, 2, 1), (4, 3, 4), (6, 1, 8)])
+def test_cross_polytope_lsh_equals_reference(l, k, probes):
+    from repro.core.lsh import CrossPolytopeLSH as RLSH
+    from repro_torch.core.lsh import CrossPolytopeLSH as TLSH
+
+    rng = np.random.default_rng(l * 10 + k)
+    x = rng.normal(size=(300, 24)).astype(np.float32)
+    r, t = RLSH.build(x, l=l, k=k, seed=3), TLSH.build(x, l=l, k=k, seed=3)
+    assert np.array_equal(r.gs, t.gs) and np.array_equal(r.data, t.data)
+    assert [sorted(tb) for tb in r.tables] == [sorted(tb) for tb in t.tables]
+    for i in range(12):
+        qv = x[i] + 0.1 * rng.normal(size=24).astype(np.float32)
+        assert np.array_equal(r.query(qv, 10, probes), t.query(qv, 10, probes))

@@ -230,6 +230,11 @@ def test_port_imports_neither_jax_nor_reference():
     bad = []
     files = _port_files()
     assert len(files) > 10
+    # every subpackage is covered, the shard and pipeline layers included
+    subpackages = {f.parent.name for f in files}
+    assert {"core", "kernels", "shard", "pipeline", "serve"} <= subpackages
+    assert ROOT / "src" / "repro_torch" / "shard" / "engines.py" in files
+    assert ROOT / "src" / "repro_torch" / "pipeline" / "shardpool.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

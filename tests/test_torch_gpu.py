@@ -567,3 +567,61 @@ def test_tiny_encoder_on_card_runs_k7_and_equals_plain_on_cpu(cuda):
     want = host.embed(toks)
     assert got.shape == (10, cfg.d_model) and np.isfinite(got).all()
     assert float(np.abs(got - want).max()) <= 1e-4
+
+
+# ------------------------------------------- the shard and pipeline layers
+def test_verify_overlap_on_a_side_stream_equals_sequential(cuda):
+    """The host walk's K1 launches queued on the overlap's side stream:
+    the same ids, sims and K1 launch count as the sequential walk."""
+    db = synthetic_binary_codes_packed(20_000, 128, seed=3)
+    q = synthetic_queries_packed(db, 128, 8, seed=4)
+    seq = make_engine("amih", db, 128, probe_backend="host",
+                      query_cache_size=0)
+    ovl = make_engine("amih", db, 128, probe_backend="host",
+                      query_cache_size=0, overlap_verify=True)
+    k0 = vt.LAUNCHES["verify_grouped"]
+    si, ss, _ = seq.knn_batch(q, 10)
+    k_seq = vt.LAUNCHES["verify_grouped"] - k0
+    oi, os_, _ = ovl.knn_batch(q, 10)
+    assert vt.LAUNCHES["verify_grouped"] - k0 - k_seq == k_seq > 0
+    assert np.array_equal(si, oi) and np.array_equal(ss, os_)
+    assert ovl._overlap.device_steps > 0
+    assert seq.index.verify_launches == ovl.index.verify_launches
+    ovl.close()
+
+
+def test_sharded_engines_on_the_card_equal_the_cpu(cuda):
+    """Eight shards on one card: one K2 walk (plus one extraction) per
+    batch for sharded AMIH, one fused K4 call per shard for the sharded
+    scan, the thread pool over the CUDA verify — each equal to the same
+    engine on the CPU."""
+    db = synthetic_binary_codes_packed(30_000, 64, seed=5)
+    q = synthetic_queries_packed(db, 64, 16, seed=6)
+    for backend, cfg in (
+            ("sharded_amih", dict(m=4)),
+            ("sharded_scan", {}),
+            ("sharded_amih", dict(probe_backend="host", probe_workers=8,
+                                  probe_mode="thread"))):
+        card = make_engine(backend, db, 64, num_shards=8, **cfg)
+        host = make_engine(backend, db, 64, num_shards=8, devices=["cpu"],
+                           **cfg)
+        for e in (card, host):
+            e.PARALLEL_MIN_SHARD_ROWS = e.PARALLEL_MIN_CPUS = 0
+            e.PARALLEL_MIN_BATCH = 0
+        w0 = dp.LAUNCHES["probe_walk"] + dp.LAUNCHES["probe_walk_cluster"]
+        x0 = dp.LAUNCHES["probe_extract"]
+        t0 = hs.LAUNCHES["hamming_scan_topk"]
+        ci, cs, _ = card.knn_batch(q, 10)
+        walks = (dp.LAUNCHES["probe_walk"] + dp.LAUNCHES["probe_walk_cluster"]
+                 - w0)
+        if backend == "sharded_scan":
+            assert hs.LAUNCHES["hamming_scan_topk"] - t0 == 8
+        elif "probe_workers" not in cfg:
+            assert walks == 1 and dp.LAUNCHES["probe_extract"] - x0 == 1
+        else:
+            assert card._pool is not None and card._pool.mode == "thread"
+        hi, hs_, _ = host.knn_batch(q, 10)
+        assert np.array_equal(ci, hi) and np.array_equal(cs, hs_)
+        if backend == "sharded_amih":
+            card.close()
+            host.close()

@@ -127,6 +127,25 @@ BACKENDS = {
     "linear-scan-cuda": (
         dict(backend="linear_scan"),
         ("linear_scan", dict(compute_backend="pallas"))),
+    "single-table": (
+        dict(backend="single_table"),
+        ("single_table", {})),
+    "sharded-scan": (
+        dict(backend="sharded_scan", num_shards=3),
+        ("sharded_scan", dict(num_shards=3))),
+    "sharded-amih-device-walk": (
+        dict(backend="sharded_amih", num_shards=3, m_tables=4),
+        ("sharded_amih", dict(num_shards=3, m=4, probe_backend="device"))),
+    # pipelined: the verify overlap on the host walk, and the shard-probe
+    # pool (standing down on this tiny corpus: the sequential chain)
+    "amih-host-pipelined": (
+        dict(backend="amih", m_tables=4, probe_backend="host",
+             pipelined=True),
+        ("amih", dict(m=4, verify_backend="pallas"))),
+    "sharded-amih-host-pipelined": (
+        dict(backend="sharded_amih", num_shards=3, m_tables=4,
+             probe_backend="host", verify_backend="numpy", pipelined=True),
+        ("sharded_amih", dict(num_shards=3, m=4))),
 }
 
 
@@ -298,13 +317,18 @@ def test_trace_installs_the_port_tracer(setup):
 
 def test_layers_not_ported_raise_and_default_is_the_card(setup,
                                                          monkeypatch):
-    for options, item in ((dict(pipelined=True), "A7"),
-                          (dict(cluster=True), "A9"),
-                          (dict(backend="single_table"), "A5"),
-                          (dict(backend="sharded_amih"), "A6"),
-                          (dict(backend="sharded_scan"), "A6")):
-        with pytest.raises(NotImplementedError, match=item):
-            _service(setup, **options)
+    """Only ``cluster`` (A9) is still refused: ``pipelined=True`` and the
+    backends ported since build and serve."""
+    with pytest.raises(NotImplementedError, match="A9"):
+        _service(setup, cluster=True)
+    for options in (dict(pipelined=True, probe_backend="host"),
+                    dict(backend="single_table"),
+                    dict(backend="sharded_amih", m_tables=4, num_shards=2),
+                    dict(backend="sharded_scan", num_shards=2)):
+        svc = _service(setup, **options)
+        ids, sims, _ = svc.search_batch(setup["queries"][:2], 3)
+        assert ids.shape == sims.shape == (2, 3)
+        svc.close()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     svc = RetrievalService(setup["t_cfg"], setup["t_params"],
                            RetrievalConfig(code_bits=BITS))
