@@ -107,6 +107,26 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       ``sharded_amih`` on the host walk with the CUDA verify (the
       thread-mode shard pool equal to its sequential chain). Each prints
       ms/query. Shards over several cards need several cards.
+   e. The cluster tier on the codes of a at p = 128 (``cluster_path``):
+      ``make_engine("cluster", db, 128, hosts=2, num_shards=8,
+      probe_backend="device")`` spawns a local fleet of two port worker
+      processes, both on the card (each opens its own context), and ships
+      each its half of the codes (4 shards). Inner ``sharded_amih`` at
+      B in {64, 1}, K in {10, 100}: float64 sims bit-identical to a's
+      AMIH on the same queries as a multiset, ids equal but for ties, and
+      ids and sims bit-identical to d's in-process ``sharded_amih`` over
+      the same plan; the 8 checked queries of the B = 64 batch equal to
+      the float64 scan as in a. Inner ``sharded_scan`` (a second fleet)
+      at B = 64, K = 10: bit-identical to d's. Each case prints ms/query,
+      the median of 5 warm batches, and the build seconds. The workers'
+      launch counters live in their own processes, so one B = 64 batch
+      runs traced: among the worker spans the coordinator ingests, each
+      host's lane must hold exactly one K2 launch span on the card.
+      ``python -m repro_torch.obs.smoke`` then runs on the card (its
+      workers on the host walk with K1), its trace goes beside the
+      profiler's traces, ``python -m repro_torch.obs.report --min-hosts 2
+      --min-stages 4`` must accept it, and both worker lanes must hold
+      launch spans on the card. No child process may be left.
    Every kernel launch counter is set to 0 just before each path (a, d,
    b) at each p, and before c, and read just after it; K2 launches count by
    form (grid, cluster), K3 by kernel (fused, map), and on path a also by
@@ -134,9 +154,12 @@ lines are the ``kernels`` JSON record and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -1130,12 +1153,14 @@ def _ms_runs(fn, B, runs=5):
 
 
 def shard_path(p, m, db, batch, singles, eng, host, h_out, *, dev, tag,
-               chk, want_topk, rows):
+               chk, want_topk, rows, keep):
     """Phase 3d at one p: the shard and pipeline layers on phase 3a's
     codes, the shards all on ``dev`` (the module docstring lists the
     checks). ``eng`` is phase 3a's AMIH engine, ``host`` its host walk
     with the CUDA verify and ``h_out`` that walk's (ids, sims, K1
-    launches) on ``batch[:4]``. Appends (label, ms/query) to ``rows``."""
+    launches) on ``batch[:4]``. Appends (label, ms/query) to ``rows``
+    and keeps in ``keep`` what phase 3e compares with: the in-process
+    engines' (ids, sims, ms/query) by (engine, B, K)."""
     import numpy as np
 
     from repro_torch.core.engine import make_engine
@@ -1249,6 +1274,10 @@ def shard_path(p, m, db, batch, singles, eng, host, h_out, *, dev, tag,
                                          f"row {i}'s sims differ from AMIH's")
             exact = same_but_ties(ids, sims, u_ids, u_sims)
             lead = st.per_shard[0]
+            keep["sharded_amih", B, K] = (ids, sims, ms)
+            if (B, K) == (64, 10):
+                span_breakdown(lambda: sh.knn_batch(batch, K),
+                               f"sharded_amih p{p}_B64_K10")
             rows.append((f"sharded_amih device walk p={p} B={B} K={K}", ms))
             log(f"  sharded_amih p={p} B={B} K={K}: {ms:.4f} ms/query "
                 f"(median of 5) {tag}; per batch 1 K2 launch, 1 extraction, "
@@ -1292,6 +1321,8 @@ def shard_path(p, m, db, batch, singles, eng, host, h_out, *, dev, tag,
                         and np.array_equal(g[1], w[1])):
                     raise AssertionError(f"sharded_scan p={p} B={B} K={K}: "
                                          "differs from the linear scan")
+            if B == 64:
+                keep["sharded_scan", B, K] = (want[0][0], want[0][1], ms)
             rows.append((f"sharded_scan p={p} B={B} K={K}", ms))
             log(f"  sharded_scan p={p} B={B} K={K}: {ms:.4f} ms/query "
                 f"(median of 5) {tag}; {N_SHARDS} fused K4 calls per batch; "
@@ -1324,6 +1355,224 @@ def shard_path(p, m, db, batch, singles, eng, host, h_out, *, dev, tag,
     log(f"  sharded_amih host walk + K1 p={p} B=8 K=10 (build {t_build:.1f} "
         f"s): the thread pool ({N_SHARDS} workers) equal to the sequential "
         f"chain; {ms_p:.2f} ms/query (chain {ms_c:.2f}) {tag}")
+
+
+# ------------------------------------------------------ phase 3e: cluster
+N_HOSTS = 2
+
+
+@contextlib.contextmanager
+def _child_threads(n):
+    """``n`` intra-op threads in the worker processes spawned inside
+    (they inherit the environment); the environment is restored after."""
+    saved = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = str(n)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("OMP_NUM_THREADS", None)
+        else:
+            os.environ["OMP_NUM_THREADS"] = saved
+
+
+def _lane_spans(tracer):
+    """Host-clock ms summed by span name in each trace lane (the
+    coordinator's, and each worker's shifted onto its clock)."""
+    out = {}
+    for s in tracer.snapshot():
+        lane = out.setdefault(s.get("host", "?"), {})
+        lane[s["name"]] = lane.get(s["name"], 0.0) + s["dur"] / 1e3
+    return out
+
+
+def _spawn_cluster(p, db, threads, **cfg):
+    """A cluster engine over a fleet it spawns (``N_HOSTS`` port workers
+    on their default device, the card), and its build seconds."""
+    from repro_torch.core.engine import make_engine
+
+    t0 = time.perf_counter()
+    with _child_threads(threads):
+        eng = make_engine("cluster", db, p, hosts=N_HOSTS,
+                          num_shards=N_SHARDS, **cfg)
+    return eng, time.perf_counter() - t0
+
+
+def cluster_path(p, m, db, batch, singles, eng, keep, *, dev, tag,
+                 want_topk, rows, out_dir):
+    """Phase 3e at p = 128: the cluster tier over ``N_HOSTS`` spawned
+    port workers on the card, against phase 3a's AMIH (``eng``) on the
+    same queries and phase 3d's in-process engines over the same plan
+    (``keep``); the module docstring lists the checks. Appends (label,
+    ms/query) to ``rows``; returns the K2 launch spans per worker lane of
+    the traced batch."""
+    import numpy as np
+
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.export import load_chrome_trace
+    from repro_torch.obs.report import summarize
+
+    t_phase = time.perf_counter()
+    dkey = str(dev)
+    # the workers share the machine's cores, as the hosts of a real
+    # deployment would have their own
+    threads = max(1, (os.cpu_count() or 1) // N_HOSTS)
+    cl, t_build = _spawn_cluster(p, db, threads, m=m, probe_backend="device")
+    procs = list(cl._fleet.procs)
+    prev = obs_trace.current()
+    try:
+        t0 = time.perf_counter()
+        cl.knn_batch(batch[:1], 10)
+        t_first = time.perf_counter() - t0
+        log(f"  cluster p={p}: {N_HOSTS} spawned workers on {dkey} ({threads} "
+            f"CPU threads each), spawn + build {t_build:.1f} s "
+            f"({db.shape[0]:,} codes in build frames, {N_SHARDS // N_HOSTS} "
+            f"shards a worker); first search {t_first:.1f} s (the workers' "
+            f"super indexes)")
+        for B in (64, 1):
+            for K in (10, 100):
+                if B == 64:
+                    a_ids, a_sims, _ = eng.knn_batch(batch, K)
+                    cl.knn_batch(batch, K)                 # warm
+                    ms, (ids, sims, st) = _ms_runs(
+                        lambda: cl.knn_batch(batch, K), B)
+                else:
+                    us = [eng.knn_batch(singles[j:j + 1], K)
+                          for j in range(1, 6)]
+                    a_ids = np.concatenate([u[0] for u in us])
+                    a_sims = np.concatenate([u[1] for u in us])
+                    cl.knn_batch(singles[:1], K)           # warm
+                    outs, ms_l = [], []
+                    for j in range(1, 6):
+                        t0 = time.perf_counter()
+                        outs.append(cl.knn_batch(singles[j:j + 1], K))
+                        ms_l.append((time.perf_counter() - t0) * 1e3)
+                    ms = statistics.median(ms_l)
+                    ids = np.concatenate([o[0] for o in outs])
+                    sims = np.concatenate([o[1] for o in outs])
+                    st = outs[-1][2]
+                for i in range(ids.shape[0]):
+                    if not np.array_equal(np.sort(sims[i]),
+                                          np.sort(a_sims[i])):
+                        raise AssertionError(
+                            f"cluster p={p} B={B} K={K}: row {i}'s sims "
+                            "differ from AMIH's")
+                exact = same_but_ties(ids, sims, a_ids, a_sims)
+                w_ids, w_sims, w_ms = keep["sharded_amih", B, K]
+                if not (np.array_equal(ids, w_ids)
+                        and np.array_equal(sims, w_sims)):
+                    raise AssertionError(
+                        f"cluster p={p} B={B} K={K}: ids or sims differ "
+                        "from the in-process sharded_amih's")
+                scan_note = ""
+                if B == 64:
+                    for r in range(K_CHECK):
+                        _, want = want_topk(r, K)
+                        if not np.allclose(sims[r], want, rtol=0, atol=1e-9):
+                            raise AssertionError(
+                                f"cluster p={p} B={B} K={K}: row {r}'s sims "
+                                "differ from the float64 scan's")
+                    scan_note = (f", the first {K_CHECK} rows equal to the "
+                                 "float64 scan")
+                bounds = sum(h["bound_frames"] for h in st.per_host)
+                rows.append((f"cluster sharded_amih device walk p={p} B={B} "
+                             f"K={K}", ms))
+                log(f"  cluster p={p} B={B} K={K}: {ms:.4f} ms/query (median "
+                    f"of 5 warm batches; build {t_build:.1f} s) {tag}, "
+                    f"in-process sharded_amih {w_ms:.4f}; sims bit-identical "
+                    f"to AMIH's as a multiset ({exact}/{ids.shape[0]} rows "
+                    f"equal outright, the rest but for ties), ids and sims "
+                    f"bit-identical to the in-process sharded_amih"
+                    f"{scan_note}; rpc ms by host "
+                    f"{[h['rpc_ms'] for h in st.per_host]}, {bounds} bound "
+                    f"frames in the last batch")
+        tr = obs_trace.Tracer(enabled=True, host="coordinator")
+        obs_trace.set_tracer(tr)
+        try:
+            _, _, st = cl.knn_batch(batch, 10)
+        finally:
+            obs_trace.set_tracer(prev)
+        k2 = {f"host{h}": 0 for h in range(N_HOSTS)}
+        for s in tr.snapshot():
+            if (s["name"] in ("launch.device_probe",
+                              "launch.device_probe.dispatch")
+                    and (s.get("args") or {}).get("device") == dkey):
+                k2[s.get("host")] = k2.get(s.get("host"), 0) + 1
+        if k2 != {f"host{h}": 1 for h in range(N_HOSTS)}:
+            raise AssertionError(f"cluster p={p}: K2 launch spans on {dkey} "
+                                 f"by lane in one traced B=64 batch: {k2}, "
+                                 "expected one per host")
+        bails = sum(s.fell_back_to_scan for s in st.per_query)
+        for lane, by in sorted(_lane_spans(tr).items()):
+            log(f"  cluster spans p={p} B=64 K=10, {lane} (host clock, ms): "
+                + ", ".join(f"{name} {ms:.3f}" for name, ms in
+                            sorted(by.items(), key=lambda kv: -kv[1])))
+        log(f"  cluster p={p}: one traced B=64 batch, K2 launch spans on "
+            f"{dkey} by worker lane {k2}; {bails}/64 rows bailed to K3")
+    finally:
+        obs_trace.set_tracer(prev)
+        cl.close()
+
+    # the sharded scan in the workers: one fused K4 call per shard
+    cs, t_build_s = _spawn_cluster(p, db, threads,
+                                   inner_backend="sharded_scan")
+    procs += cs._fleet.procs
+    try:
+        cs.knn_batch(batch, 10)        # warm: the workers upload their shards
+        ms, (ids, sims, _) = _ms_runs(lambda: cs.knn_batch(batch, 10), 64)
+    finally:
+        cs.close()
+    w_ids, w_sims, w_ms = keep["sharded_scan", 64, 10]
+    if not (np.array_equal(ids, w_ids) and np.array_equal(sims, w_sims)):
+        raise AssertionError(f"cluster sharded_scan p={p}: differs from "
+                             "d's sharded_scan (the linear scan)")
+    rows.append((f"cluster sharded_scan p={p} B=64 K=10", ms))
+    log(f"  cluster sharded_scan p={p} B=64 K=10: {ms:.4f} ms/query (median "
+        f"of 5 warm batches; spawn + build {t_build_s:.1f} s) {tag}, "
+        f"in-process {w_ms:.4f}; ids and sims bit-identical to the linear "
+        f"scan's")
+    if any(pr.is_alive() for pr in procs):
+        raise AssertionError("phase 3e: a worker process outlived its fleet")
+
+    # the traced 2-worker cluster smoke on the card, and its report
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace_path = out_dir / "obs_smoke_trace.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS=str(threads))
+    t0 = time.perf_counter()
+    smoke = subprocess.run([sys.executable, "-m", "repro_torch.obs.smoke",
+                            "--out", str(trace_path)], env=env,
+                           capture_output=True, text=True, timeout=300)
+    if smoke.returncode != 0:
+        raise AssertionError(f"repro_torch.obs.smoke failed:\n"
+                             f"{smoke.stdout}\n{smoke.stderr}")
+    report = subprocess.run([sys.executable, "-m", "repro_torch.obs.report",
+                             str(trace_path), "--min-hosts", "2",
+                             "--min-stages", "4"], env=env,
+                            capture_output=True, text=True, timeout=120)
+    if report.returncode != 0:
+        raise AssertionError(f"repro_torch.obs.report refused the smoke's "
+                             f"trace:\n{report.stdout}\n{report.stderr}")
+    doc = load_chrome_trace(str(trace_path))
+    summary = summarize(doc)
+    lanes = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
+             if e["ph"] == "M"}
+    on_card = {lanes[e["pid"]] for e in doc["traceEvents"]
+               if e["ph"] == "X" and e["name"].startswith("launch.")
+               and (e.get("args") or {}).get("device") == dkey}
+    if on_card != {"host0", "host1"}:
+        raise AssertionError(f"obs smoke trace: launch spans on {dkey} in "
+                             f"lanes {sorted(on_card)}, not both workers")
+    log(f"  obs smoke on the card: {smoke.stdout.strip().splitlines()[-1]}; "
+        f"report (floors 2 hosts, 4 stages) passed: "
+        f"{len(summary['hosts'])} hosts, {len(summary['stages'])} stages, "
+        f"wall {summary['wall_ms']:.3f} ms, launch.* spans on {dkey} in "
+        f"both worker lanes; {time.perf_counter() - t0:.1f} s")
+    leftover = multiprocessing.active_children()
+    if leftover:
+        raise AssertionError(f"phase 3e left child processes {leftover}")
+    log(f"  phase 3e p={p}: {time.perf_counter() - t_phase:.1f} s")
+    return k2
 
 
 # ------------------------------------------------------------------- K7
@@ -1858,6 +2107,7 @@ def main() -> int:
 
     amih_counts, scan_counts, shard_counts = {}, {}, {}
     shard_rows = []                       # phase 3d (label, ms/query)
+    cluster_rows, cluster_counts = [], {}  # phase 3e
     walk_shapes = {}                      # K2/K3 launches by wrapper and B
     captured = {}
     captured_scan = {}
@@ -2036,11 +2286,17 @@ def main() -> int:
 
         zero_counts()                     # path d: shards and pipeline
         t0 = time.perf_counter()
+        shard_keep = {}
         shard_path(p, m, db, batch, singles, eng, host,
                    (h_ids, h_sims, h_launches), dev=dev, tag=tag, chk=chk,
-                   want_topk=want_topk, rows=shard_rows)
+                   want_topk=want_topk, rows=shard_rows, keep=shard_keep)
         add_counts(shard_counts)
         log(f"  phase 3d p={p}: {time.perf_counter() - t0:.1f} s")
+        if p == 128:                      # path e: the cluster tier
+            cluster_counts = cluster_path(
+                p, m, db, batch, singles, eng, shard_keep, dev=dev, tag=tag,
+                want_topk=want_topk, rows=cluster_rows, out_dir=out_dir)
+        del shard_keep
         del host, eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -2077,6 +2333,8 @@ def main() -> int:
             for (name, rows), n in sorted(walk_shapes.items())))
     log(f"  kernel launches, linear-scan path: {scan_counts}")
     log(f"  kernel launches, shard and pipeline path (3d): {shard_counts}")
+    log(f"  K2 launch spans by worker lane in one traced B=64 batch, "
+        f"cluster path (3e): {cluster_counts}")
     for name, cnt in launches.items():
         if cnt == 0:
             raise AssertionError(f"kernel {name} never ran on its main path")
@@ -2279,6 +2537,8 @@ def main() -> int:
             f"{e['floor_ms']:.6f} ms")
     for label, ms in shard_rows:
         log(f"  3d {label}: {ms:.4f} ms/query")
+    for label, ms in cluster_rows:
+        log(f"  3e {label}: {ms:.4f} ms/query")
     r = retrieval
     log(f"  retrieval (gemma-2b, p=64, K=10): B=64 {r['ms_b64']:.4f}, B=1 "
         f"{r['ms_b1']:.4f} ms/query; encode "

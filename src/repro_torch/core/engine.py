@@ -22,8 +22,9 @@ Backends:
                     order (§4); host code, practical for p <= 64.
   - "sharded_scan" / "sharded_amih" — the row-sharded engines of
                     ``repro_torch.shard``, registered on first use.
-
-``cluster`` (ROADMAP A9) is not ported and raises ``NotImplementedError``.
+  - "cluster"     — the cross-host coordinator of ``repro_torch.cluster``
+                    over worker processes that run the sharded engines,
+                    registered on first use.
 
 Every backend is EXACT and returns, for every row, the reference's ids and
 float64 sims. Entry points that need a device take ``device=``: ``None``
@@ -66,12 +67,6 @@ __all__ = [
     "register_engine",
 ]
 
-# backends of layers the port does not have yet -> their ROADMAP item
-_NOT_PORTED = {
-    "cluster": "A9",
-}
-
-
 @dataclass
 class EngineStats:
     """Batched-search accounting: one stats object per query row plus
@@ -81,11 +76,11 @@ class EngineStats:
     ``cache_info`` snapshots the process-wide probing caches. Sharded
     backends fill ``shards`` and ``per_shard`` (one dict per shard: rows
     held, candidates, launches, early stops and the ``"device"`` its work
-    ran on); ``per_host`` is the cluster tier's (not ported). Streaming
-    serving (``pipeline.stream``) fills ``queue_depth`` (queries still
-    waiting behind the step) and ``latency_ms`` (rolling answered-query
-    latency percentiles); both keep their defaults for direct
-    ``knn_batch`` calls."""
+    ran on); ``per_host`` is the cluster tier's (one dict per worker
+    host). Streaming serving (``pipeline.stream``) fills
+    ``queue_depth`` (queries still waiting behind the step) and
+    ``latency_ms`` (rolling answered-query latency percentiles); both
+    keep their defaults for direct ``knn_batch`` calls."""
 
     backend: str
     queries: int = 0
@@ -208,10 +203,18 @@ def make_engine(
                         ``probe_fused``, ``probe_stream_cap``,
                         ``enumeration_cap``, ``probe_workers``,
                         ``probe_mode``, ``prime_bound``.
+      - "cluster"     — ``hosts`` | ``workers`` (address list),
+                        ``inner_backend``, ``num_shards``, ``plan``,
+                        ``prime_bound``, ``request_timeout``,
+                        ``heartbeat``, ``device`` (of the fleet it
+                        spawns); the other knobs forward to every
+                        worker's engine (JSON values only).
 
-    The sharded backends live in ``repro_torch.shard`` and register on
-    first use. Engines that hold workers ("amih" with ``overlap_verify``,
-    "sharded_amih" with ``probe_workers``) expose ``close()``; GC closes
+    The sharded backends live in ``repro_torch.shard``, the cluster in
+    ``repro_torch.cluster``; both register on first use. Engines that
+    hold workers ("amih" with ``overlap_verify``, "sharded_amih" with
+    ``probe_workers``, "cluster" with its connections and, when it
+    spawned them, its worker processes) expose ``close()``; GC closes
     them too.
 
     ``tracer=`` (a ``repro_torch.obs.trace.Tracer``) is installed as the
@@ -220,14 +223,13 @@ def make_engine(
     tracer = cfg.pop("tracer", None)
     if tracer is not None:
         _obs.set_tracer(tracer)
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet: "
-            f"ROADMAP {_NOT_PORTED[backend]}"
-        )
     cls = ENGINES.get(backend)
     if cls is None and backend.startswith("sharded"):
         from .. import shard  # noqa: F401  (registers them)
+
+        cls = ENGINES.get(backend)
+    if cls is None and backend == "cluster":
+        from .. import cluster  # noqa: F401  (registers ClusterEngine)
 
         cls = ENGINES.get(backend)
     if cls is None:

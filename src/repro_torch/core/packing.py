@@ -84,6 +84,17 @@ def codes_to_ints(words: np.ndarray, p: int) -> np.ndarray:
     return vals
 
 
+def ints_to_codes(vals: np.ndarray, p: int) -> np.ndarray:
+    """Inverse of codes_to_ints: uint64 values -> (n, W) uint32 words."""
+    vals = np.asarray(vals, dtype=np.uint64)
+    W = n_words(p)
+    out = np.zeros((vals.shape[0], W), dtype=WORD_DTYPE)
+    out[:, 0] = (vals & np.uint64(0xFFFFFFFF)).astype(WORD_DTYPE)
+    if W > 1:
+        out[:, 1] = (vals >> np.uint64(32)).astype(WORD_DTYPE)
+    return out
+
+
 def extract_substring(words: np.ndarray, lo: int, hi: int) -> np.ndarray:
     """Extract bit range [lo, hi) of each packed code as uint64 values.
 

@@ -27,6 +27,7 @@ __all__ = [
     "sim_compare",
     "is_valid_tuple",
     "rhat",
+    "tuple_count",
 ]
 
 
@@ -82,6 +83,13 @@ def sim_compare(p: int, z: int, a: tuple, b: tuple) -> int:
     lhs = na * db
     rhs = nb * da
     return (lhs > rhs) - (lhs < rhs)
+
+
+def tuple_count(p: int, z: int, r1: int, r2: int) -> int:
+    """Number of codes at exactly tuple (r1, r2) from the query (Eq. 4)."""
+    if not is_valid_tuple(p, z, r1, r2):
+        return 0
+    return math.comb(z, r1) * math.comb(p - z, r2)
 
 
 def rhat(z: int) -> int:

@@ -21,8 +21,12 @@ turns on the engine-level pipelining: the AMIH verify overlap, and for
 on ``RetrievalConfig.device``: None is the CUDA device (it raises without
 one), ``"cpu"`` runs every kernel's plain version; the sharded backends
 place their shards on ``devices`` (default: that device). The encoder's
-parameters must lie on that device. ``cluster`` (ROADMAP A9) is not
-ported and raises ``NotImplementedError``.
+parameters must lie on that device. ``cluster=True`` serves through the
+cross-host tier (``repro_torch.cluster``): a coordinator over ``hosts``
+spawned localhost workers, each running the sharded flavour of the
+backend (``sharded_scan`` for ``"sharded_scan"``, else ``sharded_amih``)
+over its slice, with only JSON knobs crossing the wire; the workers run
+on ``RetrievalConfig.device``.
 """
 
 from __future__ import annotations
@@ -82,7 +86,10 @@ class RetrievalConfig:
     pipelined: bool = False
     probe_workers: Optional[int] = None
     probe_mode: str = "auto"
-    cluster: bool = False             # not ported: ROADMAP A9
+    # the cross-host tier: a coordinator over ``hosts`` localhost workers
+    # that run the sharded flavour of ``backend``; exact, same knn_batch
+    cluster: bool = False
+    hosts: int = 2
     # True installs an enabled port Tracer at build_index (a float in
     # (0, 1] samples top-level spans at that probability); spans land on
     # ``service.engine.tracer``
@@ -170,10 +177,6 @@ class RetrievalService:
         tracing on, the three steps record ``retrieval.encode``,
         ``retrieval.aqbc`` and ``retrieval.index`` spans."""
         rc = self.rcfg
-        if rc.cluster:
-            raise NotImplementedError(
-                "RetrievalConfig(cluster=True) is not ported yet: "
-                "ROADMAP A9")
         tr = _obs_trace.current()
         with tr.span("retrieval.encode", cat="serve", n=len(doc_tokens)):
             x = self._shifted(self.embed(doc_tokens), fit=True)
@@ -211,16 +214,29 @@ class RetrievalService:
             cfg = {**shard_cfg, **amih_cfg,
                    "probe_workers": rc.probe_workers,
                    "probe_mode": rc.probe_mode}
+        backend = rc.backend
+        if rc.cluster:
+            # the workers run the sharded flavour of the backend; only
+            # JSON-serializable knobs cross the wire, and placement is
+            # each worker's own: the spawned fleet runs on the service's
+            # device
+            inner = ("sharded_scan" if rc.backend == "sharded_scan"
+                     else "sharded_amih")
+            cfg = {"hosts": rc.hosts, "inner_backend": inner,
+                   "num_shards": rc.num_shards, "device": rc.device}
+            if inner == "sharded_amih":
+                cfg.update(amih_cfg)
+            backend = "cluster"
         if rc.trace:
             sample = (float(rc.trace) if isinstance(rc.trace, float)
                       else 1.0)
             cfg["tracer"] = _obs_trace.Tracer(enabled=True, sample=sample,
                                               host="coordinator")
         with tr.span("retrieval.index", cat="serve"):
-            self.engine = make_engine(rc.backend, self.db_words,
+            self.engine = make_engine(backend, self.db_words,
                                       rc.code_bits, **cfg)
         if (rc.backend == "sharded_amih" and rc.pipelined
-                and rc.probe_workers is None):
+                and not rc.cluster and rc.probe_workers is None):
             # pipelined default: one probe worker per (non-empty) shard
             self.engine.probe_workers = len(self.engine.indexes)
         index = getattr(self.engine, "index", None)

@@ -210,7 +210,9 @@ class ShardedScanEngine(SearchEngine):
         for i in range(B):
             cand = pool_gids[i][pool_gids[i] >= 0].astype(np.int64)
             shard_counts += np.asarray(_count_per_shard(self.plan, cand))
-            sub = sims_for_ids(q[i], self.db_words, cand)  # exact float64
+            # exact float64; ids are global, the rows this host's own
+            # (a host sub-plan's local row 0 is global id ``base``)
+            sub = sims_for_ids(q[i], self.db_words, cand - self.plan.base)
             order = np.lexsort((cand, -sub))[:k_eff]
             ids_out[i] = cand[order]
             sims_out[i] = sub[order]

@@ -182,11 +182,24 @@ def test_linear_scan_engine_equals_reference():
 
 
 def test_layers_not_ported_raise():
-    """Only the cluster tier (A9) is still refused; the backends and the
-    option that slice 8 lifted build and run."""
+    """No backend is refused any more: the cluster tier (slice 9, two
+    spawned workers on the CPU) and the backends and the option that
+    slice 8 lifted build and run; a backend name the port does not have
+    still raises."""
     db, q = _data(64, 32, 2, seed=0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_make("cluster", db, 32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")    # the workers inherit it
+        eng = t_make("cluster", db, 32, hosts=2, num_shards=2, m=2,
+                     device="cpu")
+    procs = list(eng._fleet.procs)
+    try:
+        ids, sims, st = eng.knn_batch(q, 3)
+        assert ids.shape == sims.shape == (2, 3) and len(st.per_host) == 2
+    finally:
+        eng.close()
+    assert not any(pr.is_alive() for pr in procs)
+    with pytest.raises(ValueError, match="unknown search backend"):
+        t_make("nonesuch", db, 32)
     with pytest.raises(ValueError, match="pallas"):
         t_make("linear_scan", db, 32, compute_backend="pallas")
     for backend, cfg in (("single_table", {}),

@@ -5,6 +5,7 @@ port's import boundary. Every comparison is equality on the same numpy
 inputs."""
 
 import ast
+from dataclasses import fields
 from pathlib import Path
 
 import numpy as np
@@ -220,6 +221,137 @@ def test_metrics_and_trace_copies_behave():
     assert t_trace.Tracer(enabled=False).span("x") is t_trace.NOOP_SPAN
 
 
+# ------------------------------------------------ the package surface (C-P2)
+@pytest.mark.parametrize("p", [1, 7, 32, 64, 128])
+def test_tuple_count_equals_reference(p):
+    """Eq. 4 on every tuple of five query weights, out-of-range tuples
+    included (they count 0)."""
+    for z in sorted({0, 1, p // 3, p // 2, p}):
+        for r1 in range(-1, z + 2):
+            for r2 in range(-1, p - z + 2):
+                assert t_tup.tuple_count(p, z, r1, r2) == \
+                    r_tup.tuple_count(p, z, r1, r2)
+
+
+@pytest.mark.parametrize("p", [1, 31, 32, 33, 64])
+def test_ints_to_codes_equals_reference(p):
+    rng = np.random.default_rng(p)
+    vals = rng.integers(0, 1 << 63, size=40, dtype=np.uint64)
+    vals = vals & np.uint64((1 << p) - 1)
+    got = t_pack.ints_to_codes(vals, p)
+    assert got.dtype == np.uint32
+    assert np.array_equal(got, r_pack.ints_to_codes(vals, p))
+    assert np.array_equal(t_pack.codes_to_ints(got, p), vals)
+
+
+def _same(a, b):
+    """Deep equality of two results: arrays by value and dtype,
+    dataclass instances by their fields."""
+    from dataclasses import asdict, is_dataclass
+
+    if is_dataclass(a) and not isinstance(a, type):
+        return is_dataclass(b) and asdict(a) == asdict(b)
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def _registered(core):
+    """The package's backends once every layer has registered its own."""
+    import importlib
+
+    root = core.__name__.split(".")[0]
+    for sub in ("shard", "cluster"):
+        importlib.import_module(f"{root}.{sub}")
+    return sorted(core.ENGINES), core.available_backends()
+
+
+_DB = _codes(300, 64, 3)
+_Q = _codes(4, 64, 4)
+_DB24 = _codes(300, 24, 5)
+_AMIH = dict(m=2, verify_backend="numpy", probe_backend="host")
+
+# each name ``repro.core`` exports -> a call whose result the port's
+# counterpart must equal
+CORE_CASES = {
+    "AMIHIndex": lambda c: c.AMIHIndex.build(_DB, 64, **_AMIH).knn(_Q[0], 7),
+    "AMIHStats": lambda c: [f.name for f in fields(c.AMIHStats)],
+    "ENGINES": _registered,
+    "EngineStats": lambda c: [f.name for f in fields(c.EngineStats)],
+    "SearchEngine": lambda c: (
+        sorted(c.SearchEngine.__abstractmethods__),
+        all(issubclass(e, c.SearchEngine) for e in c.ENGINES.values())),
+    "SearchStats": lambda c: [f.name for f in fields(c.SearchStats)],
+    "SingleTableIndex": lambda c: c.SingleTableIndex.build(_DB24, 24)
+    .knn(_DB24[1], 6),
+    "available_backends": lambda c: _registered(c)[1],
+    "closed_form_prefix": lambda c: [c.closed_form_prefix(64, z)
+                                     for z in (0, 1, 20, 64)],
+    "default_num_tables": lambda c: [c.default_num_tables(p, n)
+                                     for p in (32, 64, 128, 256)
+                                     for n in (10, 10 ** 4, 10 ** 7)],
+    "hamming_tuples": lambda c: c.hamming_tuples(_Q[0], _DB),
+    "linear_scan_knn": lambda c: c.linear_scan_knn(_Q[2], _DB, 9),
+    "make_engine": lambda c: c.make_engine(
+        "amih", _DB, 64, **_AMIH).knn_batch(_Q, 5)[:2],
+    "n_words": lambda c: [c.n_words(p) for p in (1, 32, 33, 64, 128)],
+    "pack_bits": lambda c: c.pack_bits(c.unpack_bits(_DB, 64)),
+    "popcount": lambda c: c.popcount(_DB),
+    "probing_sequence": lambda c: list(c.probing_sequence(64, 21,
+                                                          limit=300)),
+    "rhat": lambda c: [c.rhat(z) for z in range(200)],
+    "sim_value": lambda c: [c.sim_value(64, 20, r1, r2)
+                            for r1 in range(21) for r2 in range(0, 45, 4)],
+    "sims_against_db": lambda c: c.sims_against_db(_Q[3], _DB),
+    "sims_batch_against_db": lambda c: c.sims_batch_against_db(_Q, _DB,
+                                                               chunk=64),
+    "substring_spans": lambda c: [c.substring_spans(p, m)
+                                  for p in (32, 64, 100, 128)
+                                  for m in (1, 2, 3, 8)],
+    "topk_from_sims": lambda c: c.topk_from_sims(
+        c.sims_against_db(_Q[0], _DB), 11),
+    "tuple_count": lambda c: [c.tuple_count(64, 20, r1, r2)
+                              for r1 in range(-1, 22) for r2 in range(46)],
+    "unpack_bits": lambda c: c.unpack_bits(_DB, 64),
+}
+
+
+def test_core_cases_cover_the_reference_exports():
+    import repro.core as r_core
+
+    assert sorted(CORE_CASES) == sorted(r_core.__all__)
+
+
+@pytest.mark.parametrize("name", sorted(CORE_CASES))
+def test_core_export_equals_reference(name):
+    """``repro_torch.core`` exports every name ``repro.core`` does, and
+    each gives the reference's result (ROADMAP C-P2)."""
+    import repro.core as r_core
+    import repro_torch.core as t_core
+
+    assert name in t_core.__all__ and hasattr(t_core, name)
+    assert _same(CORE_CASES[name](t_core), CORE_CASES[name](r_core))
+
+
+def test_obs_exports_equal_reference():
+    """``repro_torch.obs`` exports what ``repro.obs`` does, ``set_tracer``
+    included (ROADMAP C-P2)."""
+    import repro.obs as r_obs
+    import repro_torch.obs as t_obs
+
+    assert sorted(t_obs.__all__) == sorted(r_obs.__all__)
+    prev = t_obs.set_tracer(t_obs.Tracer(enabled=True))
+    try:
+        assert t_obs.current().enabled
+    finally:
+        t_obs.set_tracer(prev)
+    assert t_obs.current() is prev
+
+
 # ---------------------------------------------------------- import boundary
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
@@ -230,11 +362,18 @@ def test_port_imports_neither_jax_nor_reference():
     bad = []
     files = _port_files()
     assert len(files) > 10
-    # every subpackage is covered, the shard and pipeline layers included
+    # every subpackage is covered, the shard, pipeline, cluster and obs
+    # layers included
     subpackages = {f.parent.name for f in files}
-    assert {"core", "kernels", "shard", "pipeline", "serve"} <= subpackages
-    assert ROOT / "src" / "repro_torch" / "shard" / "engines.py" in files
-    assert ROOT / "src" / "repro_torch" / "pipeline" / "shardpool.py" in files
+    assert {"core", "kernels", "shard", "pipeline", "serve", "cluster",
+            "obs"} <= subpackages
+    src = ROOT / "src" / "repro_torch"
+    for rel in ("shard/engines.py", "pipeline/shardpool.py",
+                "cluster/transport.py", "cluster/worker.py",
+                "cluster/coordinator.py", "cluster/local.py",
+                "cluster/launch.py", "cluster/smoke.py", "obs/export.py",
+                "obs/report.py", "obs/smoke.py"):
+        assert src / rel in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -248,6 +387,39 @@ def test_port_imports_neither_jax_nor_reference():
                 top = mod.split(".")[0]
                 if top in ("jax", "jaxlib", "repro"):
                     bad.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
+
+
+def test_spawned_port_worker_holds_neither_jax_nor_reference():
+    """The modules of a worker process as ``LocalCluster`` spawns it: a
+    fresh interpreter from the ``spawn`` context that imports the
+    worker's entry module and ``repro_torch.cluster.worker``."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    parent, child = ctx.Pipe()
+    code = ("import sys\n"
+            "import repro_torch.cluster.local\n"
+            "import repro_torch.cluster.worker\n"
+            "conn.send(sorted(sys.modules))\n"
+            "conn.close()\n")
+    proc = ctx.Process(target=exec, args=(code, {"conn": child}))
+    with pytest.MonkeyPatch.context() as env:
+        env.setenv("OMP_NUM_THREADS", "1")    # the child inherits it
+        proc.start()
+    child.close()
+    try:
+        assert parent.poll(120)
+        mods = parent.recv()
+    finally:
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+    assert not proc.is_alive() and proc.exitcode == 0
+    assert "repro_torch.cluster.worker" in mods and "torch" in mods
+    bad = [m for m in mods
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
 
 

@@ -625,3 +625,38 @@ def test_sharded_engines_on_the_card_equal_the_cpu(cuda):
         if backend == "sharded_amih":
             card.close()
             host.close()
+
+
+def test_cluster_workers_on_the_card_equal_in_process_sharded_amih(cuda):
+    """Two spawned port workers on their default device, the card (each
+    opens its own CUDA context; the kernels load from the shared build
+    directory): ids and sims bit-identical to the in-process
+    sharded AMIH over the same plan, and each worker's trace lane holds
+    kernel-launch spans on the card."""
+    from repro_torch.cluster import LocalCluster
+    from repro_torch.obs import trace as obs_trace
+
+    db = synthetic_binary_codes_packed(60_000, 128, seed=7)
+    q = synthetic_queries_packed(db, 128, 16, seed=8)
+    fleet = LocalCluster(2)
+    prev = obs_trace.current()
+    tracer = obs_trace.Tracer(enabled=True, host="coordinator")
+    try:
+        eng = make_engine("cluster", db, 128, workers=fleet.addresses,
+                          num_shards=8, m=8, tracer=tracer)
+        try:
+            ids, sims, st = eng.knn_batch(q, 10)
+        finally:
+            eng.close()
+    finally:
+        obs_trace.set_tracer(prev)
+        fleet.close()
+    assert not any(p.is_alive() for p in fleet.procs)
+    want = make_engine("sharded_amih", db, 128, num_shards=8, m=8,
+                       devices=["cuda:0"]).knn_batch(q, 10)
+    assert np.array_equal(ids, want[0]) and np.array_equal(sims, want[1])
+    assert {s["device"] for s in st.per_shard} == {"cuda:0"}
+    lanes = {s["host"] for s in tracer.snapshot()
+             if s["name"].startswith("launch.")
+             and (s.get("args") or {}).get("device") == "cuda:0"}
+    assert lanes == {"host0", "host1"}

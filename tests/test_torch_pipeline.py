@@ -219,6 +219,35 @@ def test_c_r3_is_the_bound_margin(monkeypatch):
     _no_children(t_par)
 
 
+def test_c_r3_duplicate_row_is_the_bound_margin(monkeypatch):
+    """C-R3's second symptom, on a draw of the unseeded reference test
+    ``test_pipelined_exact_all_backends`` (thread mode; deterministic):
+    the reference's pool returns row 1 twice for query 31, the port's
+    returns the float64 scan's sims and equals its sequential chain, and
+    with its rounding margin taken away returns the same duplicate."""
+    from repro_torch.core.linear_scan import linear_scan_knn
+
+    B, n, k, seed = 64, 30, 2, 16
+    bits = r_syn.synthetic_binary_codes(n, 64, seed=seed)
+    db = pack_bits(bits)
+    q = pack_bits(r_syn.synthetic_queries(bits, B, seed=seed + 1))
+    eng = _force_pool(r_make("sharded_amih", db, 64, num_shards=4,
+                             probe_workers=4, probe_mode="thread"))
+    assert eng.knn_batch(q, k)[0][31].tolist() == [1, 1]
+    eng.close()
+    cfg = dict(num_shards=4, probe_backend="host", verify_backend="numpy")
+    si, ss, _ = t_make("sharded_amih", db, 64, **cfg).knn_batch(q, k)
+    t_par = _force_pool(t_make("sharded_amih", db, 64, probe_workers=4,
+                               probe_mode="thread", **cfg))
+    pi, ps, _ = t_par.knn_batch(q, k)
+    assert np.array_equal(si, pi) and np.array_equal(ss, ps)
+    for i in range(B):
+        assert np.array_equal(ps[i], linear_scan_knn(q[i], db, k)[1])
+    monkeypatch.setattr(t_pool, "BOUND_MARGIN", 0.0)
+    assert t_par.knn_batch(q, k)[0][31].tolist() == [1, 1]
+    _no_children(t_par)
+
+
 @pytest.mark.parametrize("mode", ["process", "thread"])
 def test_persistent_pool_forks_once_and_closes(mode):
     p, n, k, S = 64, 900, 8, 8

@@ -146,7 +146,21 @@ BACKENDS = {
         dict(backend="sharded_amih", num_shards=3, m_tables=4,
              probe_backend="host", verify_backend="numpy", pipelined=True),
         ("sharded_amih", dict(num_shards=3, m=4))),
+    # the cross-host tier: two spawned port workers (3 shards over 2
+    # hosts), bit-identical to sharded AMIH over the same plan
+    "cluster-sharded-amih": (
+        dict(backend="sharded_amih", cluster=True, num_shards=3,
+             m_tables=4),
+        ("sharded_amih", dict(num_shards=3, m=4))),
 }
+
+
+def _closed(svc):
+    """Close a service, and check that no worker process it spawned is
+    left."""
+    fleet = getattr(svc.engine, "_fleet", None)
+    svc.close()
+    assert fleet is None or not any(pr.is_alive() for pr in fleet.procs)
 
 
 def _service(setup, **options):
@@ -189,9 +203,12 @@ def test_service_codes_match_reference(setup):
 
 
 @pytest.mark.parametrize("name", sorted(BACKENDS))
-def test_service_search_bit_identical_on_same_codes(setup, name):
+def test_service_search_bit_identical_on_same_codes(setup, name, request):
     options, (r_backend, r_cfg) = BACKENDS[name]
-    svc = _service(setup, **options)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")    # spawned workers inherit it
+        svc = _service(setup, **options)
+    request.addfinalizer(lambda: _closed(svc))
     r_eng = r_make(r_backend, svc.db_words, BITS, **r_cfg)
     qs = setup["queries"]
     qc = svc.encode_query(qs)
@@ -317,18 +334,24 @@ def test_trace_installs_the_port_tracer(setup):
 
 def test_layers_not_ported_raise_and_default_is_the_card(setup,
                                                          monkeypatch):
-    """Only ``cluster`` (A9) is still refused: ``pipelined=True`` and the
-    backends ported since build and serve."""
-    with pytest.raises(NotImplementedError, match="A9"):
-        _service(setup, cluster=True)
-    for options in (dict(pipelined=True, probe_backend="host"),
+    """Nothing is refused any more: ``cluster=True`` (slice 9),
+    ``pipelined=True`` and the backends ported since build and serve."""
+    for options in (dict(cluster=True, hosts=2, m_tables=4),
+                    dict(cluster=True, backend="sharded_scan", num_shards=2),
+                    dict(pipelined=True, probe_backend="host"),
                     dict(backend="single_table"),
                     dict(backend="sharded_amih", m_tables=4, num_shards=2),
                     dict(backend="sharded_scan", num_shards=2)):
-        svc = _service(setup, **options)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("OMP_NUM_THREADS", "1")
+            svc = _service(setup, **options)
         ids, sims, _ = svc.search_batch(setup["queries"][:2], 3)
         assert ids.shape == sims.shape == (2, 3)
-        svc.close()
+        if options.get("cluster"):
+            assert svc.engine.name == "cluster"
+            assert len(svc.search_batch(setup["queries"][:2], 3)[2]
+                       .per_host) == 2
+        _closed(svc)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     svc = RetrievalService(setup["t_cfg"], setup["t_params"],
                            RetrievalConfig(code_bits=BITS))

@@ -305,6 +305,60 @@ def test_sharded_amih_bounded_equals_reference():
         t_eng.knn_batch_bounded(q, 6, np.zeros(8, np.float32))
 
 
+@pytest.mark.parametrize("n,S,hosts", [(997, 3, 2), (90, 4, 2), (64, 8, 3)])
+def test_sharded_scan_on_a_host_sub_plan(n, S, hosts):
+    """A cluster worker's sharded scan: the engine holds one host's row
+    slab under a ``host_partition`` sub-plan (global ids from ``base``).
+    The reference re-scores its candidates at their global ids in the
+    local slab and raises (ROADMAP C-R7); the port returns the linear
+    scan over the slab, ids offset by ``base``."""
+    db, q = _data(n, 64, 4, seed=n)
+    r_subs = r_plan.ShardPlan.balanced(n, S).host_partition(hosts)
+    t_subs = ShardPlan.balanced(n, S).host_partition(hosts)
+    for h, (r_sub, t_sub) in enumerate(zip(r_subs, t_subs)):
+        slab = db[t_sub.base : t_sub.base + t_sub.n]
+        ids, sims, st = t_make("sharded_scan", slab, 64, plan=t_sub,
+                               devices=["cpu"]).knn_batch(q, 5)
+        for i in range(q.shape[0]):
+            w_ids, w_sims = r_make("linear_scan", slab, 64,
+                                   compute_backend="pallas").knn_batch(
+                                       q[i:i + 1], 5)[:2]
+            assert np.array_equal(ids[i], w_ids[0] + t_sub.base)
+            assert np.array_equal(sims[i], w_sims[0])
+        assert sum(s["candidates"] for s in st.per_shard) > 0
+        if h:
+            with pytest.raises(IndexError):
+                r_make("sharded_scan", slab, 64, plan=r_sub).knn_batch(q, 5)
+
+
+def test_c_r3_on_the_fused_device_path(monkeypatch):
+    """ROADMAP C-P3's draw: the reference's fused device path comes up
+    short of k with no pool at all (C-R3), the port's returns the float64
+    scan's sims, and the port's too comes up short with its rounding
+    margin (``shardpool.BOUND_MARGIN``) taken away."""
+    from repro_torch.core.linear_scan import sims_against_db
+    from repro_torch.pipeline import shardpool as t_pool
+
+    p, n, B, k, seed = 32, 255, 10, 8, 1023355463
+    bits = r_syn.synthetic_binary_codes(n, p, seed=seed, flip_prob=0.05)
+    db = pack_bits(bits)
+    q = pack_bits(r_syn.synthetic_queries(bits, B, seed=seed + 1))
+    cfg = dict(num_shards=3, m=3, probe_backend="device")
+    with pytest.raises(ValueError, match="broadcast"):
+        r_make("sharded_amih", db, p, **cfg).knn_batch(q, k)
+    ids, sims, _ = t_make("sharded_amih", db, p, devices=["cpu"],
+                          **cfg).knn_batch(q, k)
+    assert ids.shape == sims.shape == (B, k)
+    for i in range(B):
+        scan = np.sort(sims_against_db(q[i], db))[::-1][:k]
+        assert np.array_equal(np.sort(sims[i]), np.sort(scan))
+        assert np.array_equal(sims_for_ids(q[i], db, ids[i]), sims[i])
+    monkeypatch.setattr(t_pool, "BOUND_MARGIN", 0.0)
+    with pytest.raises(ValueError, match="broadcast"):
+        t_make("sharded_amih", db, p, devices=["cpu"],
+               **cfg).knn_batch(q, k)
+
+
 # ----------------------------------------------------------- primitives
 @pytest.mark.parametrize("n,S,k", [(64, 4, 5), (70, 7, 16), (9, 4, 12)])
 def test_sharded_scan_primitives(n, S, k):
