@@ -127,8 +127,29 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       profiler's traces, ``python -m repro_torch.obs.report --min-hosts 2
       --min-stages 4`` must accept it, and both worker lanes must hold
       launch spans on the card. No child process may be left.
+   f. Token serving, through ``ServeEngine`` with gemma-2b at full width
+      (c's config, parameters drawn again from seed 0 on the card after c
+      freed its own), ``ServeConfig(max_batch=8, max_seq=256,
+      max_new_tokens=32)``: 16 greedy requests whose prompts are the first
+      16 of c's documents cut to 16–128 tokens (seed 1), so that the
+      lagging-group step and slot refills both run. Prefill runs K7
+      causal, each decode step K7 with ``valid_len = pos + 1`` on the
+      (8, 256, 1, 256) bf16 cache. It prints prefill ms by prompt length,
+      the decode step's ms (median, and at the largest group), tokens/s,
+      the decode steps and K7's launches, and profiles one engine decode
+      step at B = 8 (K7, the GEMMs and the weight casts; Chrome trace in
+      ``chiprun_out/``). Checks: K7 launched layers x (prefills + decode
+      steps) times; for 2 requests every greedy token is the argmax of
+      ``Model.forward``'s causal logits at its position wherever their
+      top-2 margin exceeds ``TIE_TOL`` (4 x the largest gap between the
+      decode and forward logits that the run measures, a gap itself at
+      most 2^-4 of the largest logit); 4 requests served again one at a
+      time (``max_batch=1``) give the batch's tokens up to the first step
+      whose margin is within ``TIE_TOL``; ``python -m
+      repro_torch.launch.serve --arch gemma_2b --tiny --requests 4`` exits
+      0 on the card.
    Every kernel launch counter is set to 0 just before each path (a, d,
-   b) at each p, and before c, and read just after it; K2 launches count by
+   b) at each p, and before c and f, and read just after it; K2 launches count by
    form (grid, cluster), K3 by kernel (fused, map), and on path a also by
    wrapper and query rows;
 4. each kernel against its plain version again, on operands captured from
@@ -142,10 +163,12 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    the fused top-k and K5
    at the main path's B = 64 call and at its first query alone (B = 1);
    K1 at the host walk's largest call and at B = 1, C = 8 (the card's
-   per-launch floor for it); K7
+   per-launch floor for it); K7 at c's encoder call and at f's decode
+   call with the most valid keys and its longest prefill, each
    also beside
-   ``scaled_dot_product_attention`` on the same tensors (its
-   ``library_ms``; the port never calls it).
+   ``scaled_dot_product_attention`` on the same tensors and valid keys
+   (its ``library_ms``, c's call in the ``kernels`` record; the port never
+   calls it).
 
 Every time is printed with the card's name and power limit. The last two
 lines are the ``kernels`` JSON record and ``{"ok": true, "device": ...}``.
@@ -1693,10 +1716,11 @@ def check_flash_cases(fa, torch, dev):
 
 
 def flash_bound_ms(q, k, kw):
-    """Least time of one K7 call: q, k and v read once and the output
-    written once at the memory rate, or the QK^T and PV multiply-adds of
-    the (query, key) pairs the masks keep at the dense rate of the input
-    type, whichever takes longest."""
+    """Least time of one K7 call: q, k and v read once (with
+    ``valid_len``, only the valid key slots) and the output written once at
+    the memory rate, or the QK^T and PV multiply-adds of the (query, key)
+    pairs the masks keep at the dense rate of the input type, whichever
+    takes longest."""
     import numpy as np
     import torch
 
@@ -1712,7 +1736,10 @@ def flash_bound_ms(q, k, kw):
     if kw.get("window", 0) > 0 and kw.get("valid_len") is None:
         ok &= qp - kp < kw["window"]
     flops = 4.0 * D * B * Hq * int(ok.sum())
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    keys = k.numel()
+    if kw.get("valid_len") is not None:
+        keys = keys // Sk * min(Sk, kw["valid_len"])
+    nbytes = (2 * q.numel() + 2 * keys) * q.element_size()
     rate = BF16_TENSOR_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
@@ -1723,8 +1750,8 @@ def check_flash_call(fa, a, kw, reps=20):
     the plain version (both in the call's dtype, and checked against the
     plain version in float32), CUDA-event times of K7 and of
     ``scaled_dot_product_attention`` (the library call, on views of the
-    same tensors), the plain version's host-clock time around one call,
-    and the bound."""
+    same tensors; with ``valid_len``, of the valid key slots), the plain
+    version's host-clock time around one call, and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1740,12 +1767,15 @@ def check_flash_call(fa, a, kw, reps=20):
     fa.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     entry["plain_ms"] = (time.perf_counter() - t0) * 1e3
-    if kw.get("window", 0) or kw.get("valid_len") is not None:
-        raise AssertionError("the library yardstick takes no window")
+    vl = kw.get("valid_len")
+    if kw.get("window", 0) or (vl is not None and kw.get("causal")):
+        raise AssertionError("the library yardstick takes no window and no "
+                             "causal valid_len")
+    kv = (k, v) if vl is None else (k[:, :vl], v[:, :vl])
 
     def sdpa():
         return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            q.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2),
             is_causal=bool(kw.get("causal")), enable_gqa=True)
 
     lib = sdpa().transpose(1, 2)
@@ -1763,6 +1793,14 @@ N_DOCS = 8192          # corpus documents
 DOC_LEN = 128          # tokens per document
 N_TOPICS = 256         # topics of the synthetic corpus
 TOPIC_VOCAB = 512      # token ids per topic
+
+
+def topic_docs(rng, topics, n):
+    """``n`` documents of ``DOC_LEN`` tokens, each drawn from one of
+    ``topics`` (N_TOPICS rows of TOPIC_VOCAB token ids)."""
+    t = rng.integers(0, N_TOPICS, n)
+    cols = rng.integers(0, TOPIC_VOCAB, (n, DOC_LEN))
+    return topics[t[:, None], cols].astype("int32")
 
 
 def retrieval_path(dev, tag, zero_counts):
@@ -1801,9 +1839,7 @@ def retrieval_path(dev, tag, zero_counts):
     topics = rng.integers(1, cfg.vocab_size, (N_TOPICS, TOPIC_VOCAB))
 
     def draw(n):
-        t = rng.integers(0, N_TOPICS, n)
-        cols = rng.integers(0, TOPIC_VOCAB, (n, DOC_LEN))
-        return topics[t[:, None], cols].astype(np.int32)
+        return topic_docs(rng, topics, n)
 
     docs = draw(N_DOCS)
     held = draw(64)                                   # held-out queries
@@ -1954,6 +1990,276 @@ def retrieval_path(dev, tag, zero_counts):
     svc.close()
     del svc, params, pooled
     return res, (a, kw)
+
+
+# ----------------------------------------------------------- token serving
+SERVE_CFG = dict(max_batch=8, max_seq=256, max_new_tokens=32)
+SERVE_REQUESTS = 16      # greedy requests, prompts of 16 to 128 tokens
+TEACHER_FORCED = 2       # requests held against the causal forward
+ONE_AT_A_TIME = 4        # requests served again with max_batch = 1
+# TIE_TOL = TIE_FACTOR x the largest |decode logit - forward logit| this
+# run measures on the teacher-forced requests: where a row's top-2 margin
+# exceeds twice the gap between two computations, both take the same
+# argmax; the second factor of 2 covers the one-at-a-time run's own gap,
+# which comes from other GEMM shapes of the same bf16 operands
+TIE_FACTOR = 4.0
+# the gap itself may be at most 2^-4 of the largest forward logit (eight
+# or more bf16 steps of it): K/V of a wrong slot or a stale row moves the
+# logits by the size of the logits themselves
+GAP_BOUND = 2.0 ** -4
+
+
+def top2_margin(row):
+    """The largest logit of a row minus the second largest."""
+    import numpy as np
+
+    a, b = np.partition(row, -2)[-2:]
+    return float(b - a)
+
+
+def serve_path(dev, tag, zero_counts):
+    """Phase 3f: token serving at gemma-2b's full width through
+    ``ServeEngine`` (see the module docstring). Returns its measurements
+    and K7's main-path decode and prefill calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma_2b")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"  gemma-2b at full width, random weights from seed {SEED}: init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    rng = np.random.default_rng(SEED)           # phase 3c's corpus
+    topics = rng.integers(1, cfg.vocab_size, (N_TOPICS, TOPIC_VOCAB))
+    docs = topic_docs(rng, topics, SERVE_REQUESTS)
+    lens = np.random.default_rng(SEED + 1).integers(16, DOC_LEN + 1,
+                                                    SERVE_REQUESTS)
+    prompts = [docs[i, :n] for i, n in enumerate(lens)]
+    checked = max(TEACHER_FORCED, ONE_AT_A_TIME)
+
+    def instrument(eng, rows, prefill_ms=None, step_ms=None):
+        """Record the logits rows of requests < ``checked`` and, where
+        given, host-clock ms of each prefill (by prompt length) and each
+        decode step (by group size); each ends in a host copy."""
+        prefill, step, decode = (eng._prefill_into_slot, eng._step,
+                                 eng._decode)
+        choose = eng._select_token
+        group = [0]
+
+        def select(row, slot):
+            rid = eng.slot_req[slot].rid
+            if rid < checked:
+                rows.setdefault(rid, []).append(np.array(row).reshape(-1))
+            return choose(row, slot)
+
+        def timed_prefill(slot, req):
+            t0 = time.perf_counter()
+            prefill(slot, req)
+            prefill_ms.append((len(req.prompt),
+                               (time.perf_counter() - t0) * 1e3))
+
+        def counted_decode(tokens, pos, mask):
+            group[0] = int(mask.sum())
+            return decode(tokens, pos, mask)
+
+        def timed_step():
+            group[0] = 0
+            t0 = time.perf_counter()
+            step()
+            if group[0]:
+                step_ms.append((group[0], (time.perf_counter() - t0) * 1e3))
+
+        eng._select_token = select
+        if prefill_ms is not None:
+            eng._prefill_into_slot = timed_prefill
+            eng._decode = counted_decode
+            eng._step = timed_step
+
+    # K7's operands on this path, for phase 4: the decode call with the
+    # most valid keys and the longest prefill (copies: the cache moves on)
+    calls = {}
+
+    def capture(q, k, v, **kw):
+        kind = "prefill" if kw.get("valid_len") is None else "decode"
+        size = q.shape[1] if kind == "prefill" else kw["valid_len"]
+        if size > calls.get(kind, (0,))[0]:
+            calls[kind] = (size, (q.clone(), k.clone(), v.clone()), dict(kw))
+        return fa.flash_attention(q, k, v, **kw)
+
+    eng = ServeEngine(cfg, params, ServeConfig(**SERVE_CFG, device=dev))
+    rows, prefill_ms, step_ms = {}, [], []
+    instrument(eng, rows, prefill_ms, step_ms)
+    zero_counts()
+    layers_mod.flash_attention = capture
+    try:
+        for pr in prompts:
+            eng.submit(pr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.run_until_drained()
+        wall = time.perf_counter() - t0
+    finally:
+        layers_mod.flash_attention = fa.flash_attention
+    st = eng.stats
+    k7 = fa.LAUNCHES["flash_attention"]
+    if k7 != cfg.n_layers * (st["prefills"] + st["decode_steps"]):
+        raise AssertionError(f"{k7} K7 launches for {st['prefills']} "
+                             f"prefills and {st['decode_steps']} decode "
+                             f"steps of {cfg.n_layers} layers")
+    if sorted(results) != list(range(SERVE_REQUESTS)) or any(
+            len(t) != SERVE_CFG["max_new_tokens"] for t in results.values()):
+        raise AssertionError("the engine did not serve every request in full")
+    res = {"launches": k7, "wall_s": wall, "tokens_s": st["tokens_out"] / wall,
+           **st}
+    groups = [g for g, _ in step_ms]
+    big = max(groups)
+    res["step_ms"] = statistics.median(ms for _, ms in step_ms)
+    res["step_ms_big"] = statistics.median(ms for g, ms in step_ms if g == big)
+    res["group_big"] = big
+    res["prefill_ms"] = sorted(prefill_ms)
+    log(f"  served {SERVE_REQUESTS} greedy requests (prompts "
+        f"{min(lens)}-{max(lens)} tokens, {SERVE_CFG}) in {wall:.2f} s: "
+        f"{st['tokens_out']} tokens, {res['tokens_s']:.1f} tokens/s; "
+        f"{st['prefills']} prefills, {st['decode_steps']} decode steps "
+        f"(group sizes {dict(sorted((g, groups.count(g)) for g in set(groups)))}); "
+        f"K7 launches {k7} = {cfg.n_layers} layers x ({st['prefills']} + "
+        f"{st['decode_steps']}) {tag}")
+    log("  prefill ms by prompt length (host clock, B = 1, to the chosen "
+        "token): " + ", ".join(f"{n}: {ms:.2f}" for n, ms in res["prefill_ms"])
+        + f" {tag}")
+    log(f"  decode step (B = {SERVE_CFG['max_batch']} rows on the card, host "
+        f"clock to the chosen tokens): median {res['step_ms']:.3f} ms over "
+        f"{len(step_ms)} steps, {res['step_ms_big']:.3f} ms at the largest "
+        f"group ({big} rows) {tag}")
+
+    # teacher-forced: each greedy token is the argmax of the causal
+    # forward's logits at its position, where that margin is not a tie
+    fwd, gap, scale = {}, 0.0, 0.0
+    with torch.no_grad():
+        for rid in range(TEACHER_FORCED):
+            seq = np.concatenate([prompts[rid], results[rid][:-1]])
+            logits, _ = model.forward(params, {"tokens": seq[None]},
+                                      device=dev)
+            f = logits[0, len(prompts[rid]) - 1:].cpu().numpy()
+            del logits
+            fwd[rid] = f
+            gap = max(gap, float(np.abs(np.stack(rows[rid]) - f).max()))
+            scale = max(scale, float(np.abs(f).max()))
+    tie_tol = TIE_FACTOR * gap
+    if not gap <= GAP_BOUND * scale:
+        raise AssertionError(f"decode logits differ from the causal "
+                             f"forward's by {gap} (largest logit {scale})")
+    limited = 0
+    for rid in range(TEACHER_FORCED):
+        for j, tok in enumerate(results[rid]):
+            if top2_margin(fwd[rid][j]) <= tie_tol:
+                limited += 1
+            elif tok != int(np.argmax(fwd[rid][j])):
+                raise AssertionError(f"request {rid} token {j}: {tok}, the "
+                                     f"forward's argmax "
+                                     f"{int(np.argmax(fwd[rid][j]))}")
+    del fwd
+    n_tf = TEACHER_FORCED * SERVE_CFG["max_new_tokens"]
+    res.update(gap=gap, tie_tol=tie_tol, scale=scale, limited=limited)
+    log(f"  teacher-forced ({TEACHER_FORCED} requests, {n_tf} tokens): "
+        f"decode logits within {gap:.4g} of the causal forward's (largest "
+        f"logit {scale:.4g}; bound {GAP_BOUND * scale:.4g}); tie tolerance "
+        f"{TIE_FACTOR:g} x {gap:.4g} = {tie_tol:.4g}; every token the "
+        f"forward's argmax, {limited}/{n_tf} steps margin-limited")
+
+    # one at a time: the same tokens up to the first margin-limited step
+    solo = ServeEngine(cfg, params, ServeConfig(
+        **dict(SERVE_CFG, max_batch=1), device=dev))
+    solo_rows = {}
+    instrument(solo, solo_rows)
+    for pr in prompts[:ONE_AT_A_TIME]:
+        solo.submit(pr)
+    alone = solo.run_until_drained()
+    same, cut, gap1 = 0, 0, 0.0
+    for rid in range(ONE_AT_A_TIME):
+        a, b = results[rid], alone[rid]
+        diff = next((j for j in range(len(a)) if a[j] != b[j]), len(a))
+        tie = next((j for j, r in enumerate(rows[rid])
+                    if top2_margin(r) <= tie_tol), len(a))
+        if diff < tie:
+            raise AssertionError(f"request {rid}: batch of 8 and one at a "
+                                 f"time differ at token {diff}, margin "
+                                 f"{top2_margin(rows[rid][diff])} > "
+                                 f"{tie_tol}")
+        same += diff == len(a)
+        cut += tie < len(a)
+        for j in range(min(diff + 1, len(a))):
+            gap1 = max(gap1, float(np.abs(rows[rid][j]
+                                          - solo_rows[rid][j]).max()))
+    res.update(solo_same=same, solo_gap=gap1)
+    log(f"  one at a time (max_batch=1, {ONE_AT_A_TIME} requests, "
+        f"{solo.stats['decode_steps']} decode steps): {same}/"
+        f"{ONE_AT_A_TIME} identical, {cut} compared up to a margin-limited "
+        f"step; logits within {gap1:.4g} of the batch's where the inputs "
+        f"agree")
+    del solo, solo_rows
+
+    # one profiled engine decode step, all 8 rows at one position
+    saved = dict(fa.LAUNCHES)
+    B = SERVE_CFG["max_batch"]
+    toks = np.array([[results[i][-1]] for i in range(B)], np.int32)
+    every = np.ones(B, bool)
+    pos = SERVE_CFG["max_seq"] // 2
+    with torch.no_grad():
+        prof = profile_batch(
+            lambda: eng._decode(toks, pos, every).float().cpu(),
+            "decode_gemma2b_B8", ROOT / "chiprun_out",
+            expect=("flash_attention",))
+        head_cast = cuda_ms(lambda: params["embed"].to(torch.bfloat16), 5)
+    fa.LAUNCHES.update(saved)                 # measurements do not count
+
+    def card_ms(words):
+        return sum(dt for dt, _, key in prof
+                   if any(w in key.lower() for w in words))
+
+    res.update(prof_k7=card_ms(("flash_attention",)),
+               prof_gemm=card_ms(("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                                  "cublas", "splitk")),
+               prof_copy=card_ms(("copy",)), head_cast_ms=head_cast,
+               prof_busy=sum(dt for dt, _, _ in prof))
+    n_w = cfg.param_count()
+    log(f"  one decode step at B = {B}, pos {pos}: K7 {res['prof_k7']:.4f} "
+        f"ms ({cfg.n_layers} launches), GEMMs {res['prof_gemm']:.4f} ms, "
+        f"copies (the float32-to-bf16 weight casts) {res['prof_copy']:.4f} "
+        f"ms, of {res['prof_busy']:.4f} ms card busy; the LM head's "
+        f"embedding cast alone {head_cast:.4f} ms; a step reads "
+        f"{n_w * 4 / 1e9:.2f} GB of float32 weights, writes and re-reads "
+        f"{n_w * 2 / 1e9:.2f} GB of casts: {n_w * 8 / HBM_BYTES_PER_S * 1e3:.2f}"
+        f" ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s ({n_w * 2 / HBM_BYTES_PER_S * 1e3:.2f}"
+        f" ms for resident bf16 weights) {tag}")
+
+    # the tiny CLI on the card, in a process of its own
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "gemma_2b", "--tiny", "--requests", "4"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if out.returncode:
+        raise AssertionError(f"python -m repro_torch.launch.serve --tiny "
+                             f"exited {out.returncode}: {out.stderr[-2000:]}")
+    log(f"  python -m repro_torch.launch.serve --arch gemma_2b --tiny "
+        f"--requests 4 on the card: {out.stdout.strip()} "
+        f"({time.perf_counter() - t0:.1f} s with the interpreter's start)")
+    del eng, params
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 3f: {res['phase_s']:.1f} s")
+    return res, {k: (a, kw) for k, (_, a, kw) in calls.items()}
 
 
 # --------------------------------------------------------------- main path
@@ -2316,6 +2622,10 @@ def main() -> int:
     retrieval, k7_call = retrieval_path(dev, tag, zero_counts)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 3f: token serving, gemma-2b at full width {tag}")
+    serving, k7_serve = serve_path(dev, tag, zero_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {"verify_grouped": amih_counts["verify_grouped"],
                 "probe_walk": amih_counts["probe_walk"],
                 "probe_walk_cluster": amih_counts["probe_walk_cluster"],
@@ -2326,7 +2636,8 @@ def main() -> int:
                 "hamming_scan_topk": scan_counts["hamming_scan_topk"],
                 "blockmax_scan": scan_counts["blockmax_scan"],
                 "verify_tuples": scan_counts["verify_tuples"],
-                "flash_attention": retrieval["launches"]}
+                "flash_attention": retrieval["launches"]
+                + serving["launches"]}
     log(f"  kernel launches, AMIH path: {amih_counts}; K2/K3 by wrapper "
         f"and query rows: " + ", ".join(
             f"{name} B={rows}: {n}"
@@ -2434,6 +2745,16 @@ def main() -> int:
         f"{k7['library_ms']:.4f} ms (differs from plain by "
         f"{k7['library_diff']:.4g}), bound {k7['bound_ms']:.4f} ms "
         f"({k7['bound_by']}); within {k7['max_abs_err']:.4g} of plain {tag}")
+    k7_path = {}
+    for kind in ("decode", "prefill"):
+        e = k7_path[kind] = check_flash_call(fa, *k7_serve[kind])
+        log(f"  flash_attention, 3f {kind} ({e['shape']}): kernel "
+            f"{e['ms']:.4f} ms, plain {e['plain_ms']:.2f} ms, "
+            f"scaled_dot_product_attention {e['library_ms']:.4f} ms on the "
+            f"same valid keys (differs from plain by "
+            f"{e['library_diff']:.4g}), bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}); within {e['max_abs_err']:.4g} of plain "
+            f"{tag}")
 
     def pick(names):
         best = None
@@ -2546,6 +2867,14 @@ def main() -> int:
         f"({N_DOCS * DOC_LEN / r['encode_s']:,.0f} tokens/s); AQBC "
         f"{r['aqbc_s']:.3f} s, index {r['index_s']:.3f} s; per encoder batch "
         f"K7 {r['k7_ms']:.4f} ms vs GEMMs {r['gemm_ms']:.4f} ms")
+    r = serving
+    e = k7_path["decode"]
+    log(f"  token serving (gemma-2b, B = 8): {r['tokens_s']:.1f} tokens/s, "
+        f"decode step {r['step_ms']:.3f} ms (median; {r['step_ms_big']:.3f} "
+        f"at {r['group_big']} rows), {r['decode_steps']} decode steps, "
+        f"{r['prefills']} prefills, K7 launches {r['launches']}; K7 at the "
+        f"decode operand {e['ms']:.6f} ms (bound {e['bound_ms']:.6f}, SDPA "
+        f"{e['library_ms']:.6f})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

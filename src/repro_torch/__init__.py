@@ -2,11 +2,14 @@
 the JAX reference it is held against).
 
 It imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
-The port so far: the main path — exact top-K angular search with AMIH on
-one device, ``make_engine("amih", db, p)`` (the device walk by default)
--> ``knn_batch`` -> ``(ids, sims, EngineStats)`` — its host walk, and
-three hand-written CUDA kernels (``kernels/csrc``). Entry points run on
-the CUDA device unless the caller passes ``device="cpu"``.
+The port: exact top-K angular search with AMIH on the card,
+``make_engine("amih", db, p)`` (the device walk by default) ->
+``knn_batch`` -> ``(ids, sims, EngineStats)``, its host walk, the linear
+scan and the single table; the shard, pipeline and cluster layers and
+observability; retrieval serving and token serving on the dense LM
+(``serve``, ``models``, ``launch.serve``). Its seven hand-written CUDA
+kernel libraries live in ``kernels/csrc``. Entry points run on the CUDA
+device unless the caller passes ``device="cpu"``.
 """
 
 from .core import (

@@ -1,5 +1,5 @@
-"""Carry the reference's state across to the port: an AMIH index, and
-the LM encoder's parameters.
+"""Carry the reference's state across to the port: an AMIH index, the
+LM's parameters and its decode cache.
 
 The reference's ``AMIHIndex`` exports as plain numpy (``index_state`` of
 either package gives the same dict): ``p``, ``m``, ``id_offset``,
@@ -12,6 +12,10 @@ so both packages search the very same tables.
 ``params_from_reference`` takes the reference's parameter tree with its
 leaves as numpy arrays (the caller does the ``np.asarray``) and returns
 the port's dict of tensors with the same keys, shapes and dtypes.
+``cache_from_reference`` does the same for the reference's decode cache
+(``{"layers": LayerCache(attn=AttnCache(k, v), ssm=None)}``, leaves as
+numpy, bf16 ones as ``ml_dtypes.bfloat16``) and returns the port's
+``LayerCache``/``AttnCache`` tree.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from .core.amih import AMIHIndex, _SubTable
 from .core.packing import WORD_DTYPE, n_words, substring_spans
 from .kernels.ops import resolve_device
 
-__all__ = ["index_from_reference", "index_state", "params_from_reference"]
+__all__ = ["cache_from_reference", "index_from_reference", "index_state",
+           "params_from_reference"]
 
 
 def index_state(index) -> Dict[str, Any]:
@@ -79,6 +84,18 @@ def index_from_reference(state: Dict[str, Any], **options) -> AMIHIndex:
     )
 
 
+def _tensor(x, dev) -> torch.Tensor:
+    """One numpy leaf as a tensor on ``dev`` (bf16 through its bits)."""
+    a = np.asarray(x)
+    bf16 = a.dtype.name == "bfloat16"
+    if bf16:
+        a = a.view(np.int16)
+    if not a.flags.writeable:              # torch wants memory it may own
+        a = a.copy()
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return (t.view(torch.bfloat16) if bf16 else t).to(dev)
+
+
 def params_from_reference(tree, device=None):
     """The port's parameters from the reference's tree of numpy arrays,
     on ``device`` (None: the CUDA device)."""
@@ -87,9 +104,24 @@ def params_from_reference(tree, device=None):
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
-        a = np.asarray(x)
-        if not a.flags.writeable:          # torch wants memory it may own
-            a = a.copy()
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return _tensor(x, dev)
 
     return conv(tree)
+
+
+def cache_from_reference(tree, device=None):
+    """The port's decode cache from the reference's cache tree of numpy
+    leaves, on ``device`` (None: the CUDA device)."""
+    from .models.blocks import AttnCache, LayerCache
+
+    dev = resolve_device(device)
+    out = {}
+    for name, lc in tree.items():
+        attn = lc.attn
+        if lc.ssm is not None or attn is None:
+            raise ValueError(f"{name}: only attention caches are ported "
+                             "(the SSM state is ROADMAP A11)")
+        out[name] = LayerCache(attn=AttnCache(k=_tensor(attn.k, dev),
+                                              v=_tensor(attn.v, dev)),
+                               ssm=None)
+    return out

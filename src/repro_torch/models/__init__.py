@@ -1,6 +1,6 @@
-"""The port's LM encoder: the dense-family forward that retrieval serving
-runs (``common``, ``layers``, ``blocks``, ``lm``, ``api``), with attention
-through K7."""
+"""The port's dense-family LM (``common``, ``layers``, ``blocks``, ``lm``,
+``api``): the retrieval encoder's forward, the scoring forward, prefill
+and the KV-cache decode step, with attention through K7."""
 
 from .api import Model
 from .common import ArchConfig

@@ -1,7 +1,8 @@
-"""Model API of the port (the reference's ``models/api.py`` ``Model``, with
-only parameter initialisation: the forward that the port runs is the
-retrieval encoder's, ``serve.retrieval.RetrievalService.embed``; training,
-prefill and decode are ROADMAP A11)."""
+"""Model API of the port (the reference's ``models/api.py`` ``Model``, dense
+family): parameter initialisation, the scoring forward, prefill, the
+decode step and the decode cache. Each call runs on ``device`` (None: the
+CUDA device, which raises without one); the enc-dec family, the loss and
+training are ROADMAP A11."""
 
 from __future__ import annotations
 
@@ -28,3 +29,19 @@ class Model:
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
         return lm.init_params(self.cfg, gen, device=dev)
+
+    def forward(self, params, batch, device=None):
+        return lm.forward(self.cfg, params, batch, device=device)
+
+    def prefill(self, params, batch, device=None):
+        return lm.prefill(self.cfg, params, batch, device=device)
+
+    def decode_step(self, params, cache, tokens, pos, device=None):
+        return lm.decode_step(self.cfg, params, cache, tokens, pos,
+                              device=device)
+
+    def cache_template(self, batch: int, max_seq: int):
+        return lm.cache_template(self.cfg, batch, max_seq)
+
+    def init_cache(self, batch: int, max_seq: int, device=None):
+        return lm.init_cache(self.cfg, batch, max_seq, device=device)

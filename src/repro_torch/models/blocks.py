@@ -1,20 +1,54 @@
-"""Transformer block of the port's LM encoder (the dense branch of the
-reference's ``models/blocks.py``):
+"""Transformer block of the port's LM (the dense branch of the reference's
+``models/blocks.py``):
 
   dense   x += attn(norm(x));  x += mlp(norm(x))
 
-The other families (MoE, SSM, hybrid, enc-dec), the decode path and its
-caches are ROADMAP A11 and raise ``NotImplementedError``.
+``block_forward`` is the full-sequence path (the encoder, prefill, the
+scoring forward), ``block_decode`` the single-token path against a KV
+cache. Caches are NamedTuples laid out as the reference lays them. The
+other families (MoE, SSM, hybrid, enc-dec) are ROADMAP A11 and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from .common import not_ported
-from .layers import apply_norm, apply_rope, blocked_attention, mlp, rope_angles
+from .layers import (
+    apply_norm,
+    apply_rope,
+    blocked_attention,
+    decode_attention,
+    mlp,
+    rope_angles,
+)
 
-__all__ = ["attention_full", "block_forward"]
+__all__ = [
+    "AttnCache",
+    "LayerCache",
+    "attention_decode",
+    "attention_full",
+    "block_decode",
+    "block_forward",
+]
+
+
+class AttnCache(NamedTuple):
+    k: torch.Tensor    # (B, S_max, Hkv, Dh); stacked: (L, B, S_max, Hkv, Dh)
+    v: torch.Tensor
+
+
+class LayerCache(NamedTuple):
+    attn: Optional[AttnCache]
+    ssm: None          # the SSM state (ROADMAP A11); always None here
+
+
+def _dense(cfg):
+    if cfg.family != "dense" or cfg.is_moe:
+        raise not_ported(f"the {cfg.family!r} block")
 
 
 def _attn_proj(x, p):
@@ -28,25 +62,63 @@ def _attn_proj(x, p):
 def attention_full(x, p, cfg, positions, *, causal: bool = True,
                    window: int = 0):
     """Full-sequence self-attention; ``p`` is the attention subdict
-    {wq, wk, wv, wo}."""
+    {wq, wk, wv, wo}. Returns (out, (k, v)), k after RoPE, for the
+    cache."""
     q, k, v = _attn_proj(x, p)
     if cfg.rope_theta > 0:
         cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     out = blocked_attention(q, k, v, causal=causal, window=window)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return out, (k, v)
+
+
+def attention_decode(x, p, cfg, cache: AttnCache, pos: int, *,
+                     window: int = 0):
+    """Single-token attention at position ``pos`` (a Python int): writes
+    this token's k and v into slot ``pos`` of ``cache`` in place (the
+    reference's engine donates its cache) and attends over slots
+    [0, pos]. Returns (out, cache)."""
+    q, k, v = _attn_proj(x, p)          # (B, 1, H, Dh)
+    if cfg.rope_theta > 0:
+        posv = torch.full((1,), pos, device=x.device)
+        cos, sin = rope_angles(posv, cfg.head_dim_, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
+    out = decode_attention(q, cache.k, cache.v, pos + 1, window=window)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return out, cache
 
 
 def block_forward(cfg, p, x, positions, *, window: int = 0,
-                  causal: bool = True):
-    """One dense layer, full sequence."""
-    if cfg.family != "dense" or cfg.is_moe:
-        raise not_ported(f"the {cfg.family!r} block")
+                  build_cache: bool = False, causal: bool = True):
+    """One dense layer, full sequence. Returns (x, aux, cache or None)."""
+    _dense(cfg)
     h = apply_norm(x, p["ln1"], cfg.norm)
-    x = x + attention_full(h, p["attn"], cfg, positions, causal=causal,
-                           window=window)
+    attn_out, (k, v) = attention_full(h, p["attn"], cfg, positions,
+                                      causal=causal, window=window)
+    x = x + attn_out
+    cache = (LayerCache(attn=AttnCache(k=k, v=v), ssm=None)
+             if build_cache else None)
     if cfg.d_ff > 0:
         h2 = apply_norm(x, p["ln2"], cfg.norm)
         x = x + mlp(h2, p["mlp"], cfg.activation)
-    return x
+    return x, {}, cache
+
+
+def block_decode(cfg, p, x, cache: LayerCache, pos: int, *,
+                 window: int = 0):
+    """One dense layer, one token. Returns (x, cache), the cache written
+    in place."""
+    _dense(cfg)
+    h = apply_norm(x, p["ln1"], cfg.norm)
+    attn_out, new_attn = attention_decode(h, p["attn"], cfg, cache.attn, pos,
+                                          window=window)
+    x = x + attn_out
+    if cfg.d_ff > 0:
+        h2 = apply_norm(x, p["ln2"], cfg.norm)
+        x = x + mlp(h2, p["mlp"], cfg.activation)
+    return x, LayerCache(attn=new_attn, ssm=None)

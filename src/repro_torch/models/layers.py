@@ -1,13 +1,15 @@
-"""Core layers of the port's LM encoder: norms, RoPE, MLPs and attention
-(a port of the reference's ``models/layers.py``).
+"""Core layers of the port's LM: norms, RoPE, MLPs and attention (a port
+of the reference's ``models/layers.py``).
 
-``blocked_attention`` runs K7 (``kernels.flash_attention``): the kernel on
-a CUDA tensor, its plain version on a CPU tensor, as the reference runs
-its Pallas kernel on the TPU. ``_blocked_attention_impl`` is the
-reference's pure blocked online-softmax path, which the reference runs
-off the TPU; the port keeps it as a second plain version that the tests
-hold against the reference. No caller of the port shifts the query block
-(the reference's ``q_offset``), so neither function takes one.
+``blocked_attention`` (prefill, the encoder) and ``decode_attention`` (one
+query row against a linear KV cache, with ``valid_len``) run K7
+(``kernels.flash_attention``): the kernel on a CUDA tensor, its plain
+version on a CPU tensor, as the reference runs its Pallas kernel on the
+TPU. ``_blocked_attention_impl`` and ``_decode_attention_impl`` are the
+reference's pure paths, which the reference runs off the TPU; the port
+keeps them as second plain versions that the tests hold against the
+reference. No caller of the port shifts the query block (the reference's
+``q_offset``), so neither blocked function takes one.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ __all__ = [
     "apply_norm",
     "apply_rope",
     "blocked_attention",
+    "decode_attention",
     "mlp",
     "rmsnorm",
     "rope_angles",
@@ -156,3 +159,36 @@ def _blocked_attention_impl(q, k, v, *, causal: bool, window: int = 0,
     out = torch.stack(outs, dim=1).reshape(B, Sq_p, Hq, D)[:, :Sq]
     return out.to(q.dtype)
 
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                     ring: bool = False):
+    """One query row (B, 1, Hq, D) against a linear KV cache
+    (B, S, Hkv, D) whose slots [0, cache_len) are valid (with ``window``,
+    only the last ``window`` of them), through K7 with ``valid_len``.
+    ``cache_len`` is a Python int, so nothing waits for the card. The
+    hybrid family's ring buffer (``ring=True``) is not ported."""
+    if ring:
+        raise not_ported("the ring-buffer KV cache")
+    return flash_attention(q.contiguous(), k_cache.contiguous(),
+                           v_cache.contiguous(), causal=False,
+                           window=window, valid_len=int(cache_len))
+
+
+def _decode_attention_impl(q, k_cache, v_cache, cache_len, *,
+                           window: int = 0):
+    """The reference's pure decode attention: scores in float32, a masked
+    softmax, p cast to v's dtype before the PV product."""
+    B, S, Hkv, D = k_cache.shape
+    Hq = q.shape[2]
+    G = Hq // Hkv
+    qh = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qh, k_cache.float()) * D ** -0.5
+    k_pos = torch.arange(S, device=q.device)
+    ok = k_pos < cache_len
+    if window > 0:
+        ok &= k_pos >= cache_len - window
+    s = torch.where(ok[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, Hq, D).to(q.dtype)

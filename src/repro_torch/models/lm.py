@@ -1,5 +1,6 @@
-"""The port's decoder LM: parameter templates, random init, embedding and
-the layer stack (the dense part of the reference's ``models/lm.py``).
+"""The port's decoder LM, dense family (the reference's ``models/lm.py``):
+parameter templates, random init, embedding, the layer stack, the LM head,
+the scoring forward, the decode cache, prefill and the decode step.
 
 Parameters are a plain dict of tensors with the reference's tree: per
 layer tensors stacked on a leading "layers" axis under ``"layers"``, the
@@ -8,8 +9,17 @@ embedding, the final norm, and ``"unembed"`` where embeddings are untied.
 0.02 / sqrt(2 L) for output projections, norms at 1; ``param_dtype``),
 from a ``torch.Generator`` on the target device. The forward loops over
 the stacked layers; rematerialisation is a training concern and is not
-ported, nor are MoE, SSM, hybrid, enc-dec, the LM head, the loss, prefill
-or decode (ROADMAP A11).
+ported.
+
+The decode cache is ``{"layers": LayerCache(attn=AttnCache(k, v),
+ssm=None)}`` with k and v laid out (layers, batch, kv_len, kv_heads,
+head_dim) in the compute dtype, as the reference's. ``decode_step``
+writes its token's k and v into that cache in place (the reference's
+serving engine donates it) and returns it. ``prefill``, ``forward``,
+``init_cache`` and ``decode_step`` run on ``device`` (None: the CUDA
+device; it raises without one) and refuse parameters that lie elsewhere.
+MoE, SSM, hybrid, enc-dec and vlm, and the loss, are ROADMAP A11 and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,18 +27,28 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from .blocks import block_forward
+from ..kernels.ops import resolve_device
+from .blocks import AttnCache, LayerCache, block_decode, block_forward
 from .common import ArchConfig, not_ported
+from .layers import apply_norm
 
 __all__ = [
     "PSpec",
+    "cache_template",
     "count_params",
+    "decode_step",
     "embed_tokens",
+    "forward",
+    "forward_hidden",
+    "init_cache",
     "init_params",
     "layer_template",
+    "lm_head",
     "model_template",
+    "prefill",
 ]
 
 
@@ -148,6 +168,16 @@ def embed_tokens(cfg, params, tokens):
     return h
 
 
+def lm_head(cfg, params, h):
+    """(B, S, d) hidden states -> (B, S, V) float32 logits. The weights are
+    cast to the compute dtype on every call, as the reference does."""
+    if cfg.tie_embeddings:
+        w = params["embed"].to(cfg.cdtype()).T
+    else:
+        w = params["unembed"].to(cfg.cdtype())
+    return (h @ w).float()
+
+
 # -------------------------------------------------------------- the stack
 def _layer(stack_params, i: int):
     if isinstance(stack_params, dict):
@@ -155,9 +185,103 @@ def _layer(stack_params, i: int):
     return stack_params[i]
 
 
+def _n_layers(stack_params) -> int:
+    return stack_params["ln1"]["scale"].shape[0]
+
+
 def _apply_stack(cfg, stack_params, h, positions, *, window: int = 0):
     """The stacked layers in order."""
-    for i in range(stack_params["ln1"]["scale"].shape[0]):
-        h = block_forward(cfg, _layer(stack_params, i), h, positions,
-                          window=window)
+    for i in range(_n_layers(stack_params)):
+        h, _, _ = block_forward(cfg, _layer(stack_params, i), h, positions,
+                                window=window)
     return h
+
+
+def _placed(params, tokens, device):
+    """The run's device and the tokens on it as int64 (the embedding's
+    index type); parameters on another device are refused, not moved."""
+    dev = resolve_device(device)
+    if params["embed"].device != dev:
+        raise ValueError(f"parameters lie on {params['embed'].device}, the "
+                         f"run on {dev}: place them there first")
+    if isinstance(tokens, torch.Tensor):
+        return dev, tokens.to(dev, torch.int64)
+    return dev, torch.from_numpy(np.asarray(tokens, np.int64)).to(dev)
+
+
+def forward_hidden(cfg: ArchConfig, params, batch, *, device=None):
+    """Forward up to and including the final norm: (h (B, S, d), aux)."""
+    dev, tokens = _placed(params, batch["tokens"], device)
+    h = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(h.shape[1], device=dev)
+    h = _apply_stack(cfg, params["layers"], h, positions)
+    return apply_norm(h, params["final_norm"], cfg.norm), {}
+
+
+def forward(cfg: ArchConfig, params, batch, *, device=None):
+    """Scoring forward (causal, K7): (logits (B, S, V) float32, aux)."""
+    h, aux = forward_hidden(cfg, params, batch, device=device)
+    return lm_head(cfg, params, h), aux
+
+
+# ------------------------------------------------------------------ cache
+def cache_template(cfg: ArchConfig, batch: int, max_seq: int):
+    """The decode cache's shapes and dtypes, allocated nowhere (tensors on
+    the ``meta`` device; the reference returns ShapeDtypeStructs)."""
+    if cfg.family != "dense" or cfg.is_moe or cfg.first_k_dense:
+        raise not_ported(f"the {cfg.family!r} decode cache")
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
+    return {"layers": LayerCache(
+        attn=AttnCache(
+            k=torch.empty(shape, dtype=cfg.cdtype(), device="meta"),
+            v=torch.empty(shape, dtype=cfg.cdtype(), device="meta")),
+        ssm=None)}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None):
+    """A zero decode cache on ``device`` (None: the CUDA device)."""
+    dev = resolve_device(device)
+    a = cache_template(cfg, batch, max_seq)["layers"].attn
+    return {"layers": LayerCache(
+        attn=AttnCache(k=torch.zeros_like(a.k, device=dev),
+                       v=torch.zeros_like(a.v, device=dev)),
+        ssm=None)}
+
+
+# ---------------------------------------------------------------- decode
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int, *,
+                device=None):
+    """One decode step: tokens (B, 1) at position ``pos`` (a Python int).
+    Returns (logits (B, V) float32, cache), the cache written in place."""
+    _, tokens = _placed(params, tokens, device)
+    pos = int(pos)
+    h = embed_tokens(cfg, params, tokens)
+    kv = cache["layers"].attn
+    for i in range(_n_layers(params["layers"])):
+        lc = LayerCache(attn=AttnCache(k=kv.k[i], v=kv.v[i]), ssm=None)
+        h, _ = block_decode(cfg, _layer(params["layers"], i), h, lc, pos)
+    h = apply_norm(h, params["final_norm"], cfg.norm)
+    return lm_head(cfg, params, h)[:, 0], cache
+
+
+# --------------------------------------------------------------- prefill
+def prefill(cfg: ArchConfig, params, batch, max_seq: Optional[int] = None,
+            *, device=None):
+    """Full-prompt pass that also builds the decode cache. Returns (logits
+    at the last position (B, V) float32, cache sized to the prompt; the
+    serving engine pads it to its ``max_seq``, and ``max_seq`` here is
+    unused, as in the reference)."""
+    dev, tokens = _placed(params, batch["tokens"], device)
+    h = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(h.shape[1], device=dev)
+    ks, vs = [], []
+    for i in range(_n_layers(params["layers"])):
+        h, _, lc = block_forward(cfg, _layer(params["layers"], i), h,
+                                 positions, build_cache=True)
+        ks.append(lc.attn.k)
+        vs.append(lc.attn.v)
+    h = apply_norm(h, params["final_norm"], cfg.norm)
+    logits = lm_head(cfg, params, h[:, -1:, :])[:, 0]
+    cache = {"layers": LayerCache(
+        attn=AttnCache(k=torch.stack(ks), v=torch.stack(vs)), ssm=None)}
+    return logits, cache

@@ -1,6 +1,7 @@
-"""The port's serving layer: retrieval serving (``RetrievalService``). The
-token-serving engine is ROADMAP A10."""
+"""The port's serving layer: the batched prefill/decode engine
+(``ServeEngine``) and retrieval serving (``RetrievalService``)."""
 
+from .engine import ServeConfig, ServeEngine
 from .retrieval import RetrievalConfig, RetrievalService
 
-__all__ = ["RetrievalConfig", "RetrievalService"]
+__all__ = ["RetrievalConfig", "RetrievalService", "ServeConfig", "ServeEngine"]

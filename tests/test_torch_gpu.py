@@ -660,3 +660,83 @@ def test_cluster_workers_on_the_card_equal_in_process_sharded_amih(cuda):
              if s["name"].startswith("launch.")
              and (s.get("args") or {}).get("device") == "cuda:0"}
     assert lanes == {"host0", "host1"}
+
+
+# ------------------------------------------------------------ token serving
+@pytest.mark.parametrize("valid_len", [1, 100, 256])
+def test_flash_attention_at_the_gemma_decode_shape(cuda, valid_len):
+    """K7 as gemma-2b's decode step calls it: one query row of 8 q heads
+    of 256 over 1 kv head against a (8, 256) cache, bf16, within
+    4e-3 * max(1, |plain|) of the plain version in float32."""
+    g = torch.Generator(device=cuda).manual_seed(valid_len)
+    q = torch.randn((8, 1, 8, 256), generator=g, device=cuda).bfloat16()
+    k = torch.randn((8, 256, 1, 256), generator=g, device=cuda).bfloat16()
+    v = (torch.rand((8, 256, 1, 256), generator=g, device=cuda) * 2 - 1
+         ).bfloat16()
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=False, valid_len=valid_len)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=False, valid_len=valid_len)
+    assert bool(((got.float() - want).abs()
+                 <= 4e-3 * want.abs().clamp(min=1.0)).all())
+
+
+def _serve_tiny(device, params, cfg):
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    rng = np.random.default_rng(0)
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_batch=3, max_seq=48, max_new_tokens=8, device=device))
+    margins = {}
+    choose = eng._select_token
+
+    def recorded(row, slot):
+        top = np.sort(np.asarray(row).reshape(-1))
+        margins.setdefault(eng.slot_req[slot].rid, []).append(
+            float(top[-1] - top[-2]))
+        return choose(row, slot)
+
+    eng._select_token = recorded
+    for n in (5, 11, 17, 5, 11, 17, 5):
+        eng.submit(rng.integers(1, cfg.vocab_size, n))
+    return eng, eng.run_until_drained(), margins
+
+
+def test_tiny_serve_engine_on_card_equals_cpu(cuda):
+    """The tiny gemma in float32 served on the card (decode through K7
+    with valid_len, one launch per layer and step) gives the CPU's tokens
+    and stats, compared up to the first step whose CPU top-2 margin is
+    below 1e-3 (the kernel and the plain version sum in other orders)."""
+    cfg = get_tiny("gemma_2b").replace(compute_dtype="float32")
+    params = Model(cfg).init_params(0, device=cuda)
+    before = fa.LAUNCHES["flash_attention"]
+    card, got, _ = _serve_tiny(cuda, params, cfg)
+    st = card.stats
+    assert fa.LAUNCHES["flash_attention"] - before == cfg.n_layers * (
+        st["prefills"] + st["decode_steps"])
+    host, want, margins = _serve_tiny("cpu", _to(params, "cpu"), cfg)
+    assert st == host.stats
+    for rid, toks in want.items():
+        tie = next((j for j, m in enumerate(margins[rid]) if m < 1e-3),
+                   len(toks))
+        assert got[rid][:tie] == toks[:tie], rid
+
+
+def test_serving_raises_when_the_kernel_does_not_build(cuda, monkeypatch):
+    """A K7 build that fails stops the decode on the card: no fallback to
+    the plain version or to the CPU."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers
+
+    def fail(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(_build, "load", fail)
+    q = torch.zeros((2, 1, 4, 32), device=cuda)
+    kv = torch.zeros((2, 16, 1, 32), device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        layers.decode_attention(q, kv, kv, 3)
+    cfg = get_tiny("gemma_2b").replace(compute_dtype="float32")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _serve_tiny(cuda, Model(cfg).init_params(0, device=cuda), cfg)

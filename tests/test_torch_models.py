@@ -222,13 +222,13 @@ def test_attention_and_block_match_reference(tiny):
     pos = np.arange(24)
     r_lp = _layer0(r_params)
     t_lp = t_lm._layer(t_params["layers"], 0)
-    t_out = t_blocks.attention_full(torch.from_numpy(x), t_lp["attn"],
-                                    t_cfg, torch.from_numpy(pos))
+    t_out, _ = t_blocks.attention_full(torch.from_numpy(x), t_lp["attn"],
+                                       t_cfg, torch.from_numpy(pos))
     r_out, _ = r_blocks.attention_full(jnp.asarray(x), r_lp["attn"], r_cfg,
                                        jnp.asarray(pos))
     _close(t_out, r_out, TOL)
-    t_x = t_blocks.block_forward(t_cfg, t_lp, torch.from_numpy(x),
-                                 torch.from_numpy(pos))
+    t_x, _, _ = t_blocks.block_forward(t_cfg, t_lp, torch.from_numpy(x),
+                                       torch.from_numpy(pos))
     r_x, _, _ = r_blocks.block_forward(r_cfg, r_lp, jnp.asarray(x),
                                        jnp.asarray(pos))
     _close(t_x, r_x, TOL)
