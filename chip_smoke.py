@@ -148,8 +148,31 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       whose margin is within ``TIE_TOL``; ``python -m
       repro_torch.launch.serve --arch gemma_2b --tiny --requests 4`` exits
       0 on the card.
+   g. Training (``train_path``): (a) K7's gradient (the autograd Function:
+      K7 forward, the blocked recompute in float32 backward) at the
+      training operand, q (8, 128, 8, 256), k and v (8, 128, 1, 256), bf16,
+      causal, against plain autograd through K7's plain version in float32,
+      within 4e-3 * max(1, |plain|), and K7 timed there beside its bound,
+      SDPA and its plain version; (b) gemma-2b at full width and depth (c's
+      config, parameters from seed 0 on the card with their AdamW state,
+      40 GB), ``make_train_step`` with ``OptimConfig(peak_lr=3e-4,
+      warmup_steps=1, decay_steps=8)``, remat "full", the full float32
+      logits, 8 steps on ``TokenPipeline`` batches of 8 x 128 tokens
+      (vocab 256,000): every loss finite, the mean of the last 3 below the
+      first, K7 launched exactly 2 x 18 times a step (the forward and
+      remat's recompute), the peak allocation under the card's memory; it
+      prints the median step ms of steps 2-8, tokens/s, the model flops
+      share (``mfu``: 6 x parameters x tokens over the step at 989
+      TFLOP/s), one profiled step by kernel kind and by range (AdamW, the
+      attention recompute, the loss; Chrome trace in ``chiprun_out/``),
+      and the step with each stacked leaf indexed per layer against split
+      once; (c) at the tiny gemma, the ``Trainer`` on the card (one
+      injected failure recovered from the last checkpoint, giving up after
+      ``max_restarts``, a resume from a checkpoint equal bit for bit to the
+      uninterrupted run) and ``python -m repro_torch.launch.train --arch
+      gemma_2b --tiny --steps 8``, checkpoints under a temporary directory.
    Every kernel launch counter is set to 0 just before each path (a, d,
-   b) at each p, and before c and f, and read just after it; K2 launches count by
+   b) at each p, and before c, f and g's 8 steps, and read just after it; K2 launches count by
    form (grid, cluster), K3 by kernel (fused, map), and on path a also by
    wrapper and query rows;
 4. each kernel against its plain version again, on operands captured from
@@ -348,7 +371,23 @@ def max_err(outs, refs) -> int:
     return worst
 
 
-def profile_batch(fn, label, out_dir, expect=()):
+def _device_ms(prof, name):
+    """Device ms of the kernels launched under the ``record_function``
+    ranges called ``name`` (their children included), or None where the
+    trace attributes none to them."""
+    total = 0.0
+    for e in prof.events():
+        # the range's host-side event: its children's kernels (the trace
+        # also holds the range's span on the card, which is not kernel time)
+        if e.name == name and "CUDA" not in str(e.device_type):
+            dt = getattr(e, "device_time_total", None)
+            if dt is None:
+                dt = getattr(e, "cuda_time_total", 0.0)
+            total += dt / 1e3
+    return total or None
+
+
+def profile_batch(fn, label, out_dir, expect=(), ranges=None):
     """One traced call of ``fn`` under ``torch.profiler``: wall time, the
     card's busy time (the sum of its kernels), the kernels that took it by
     device time, and the host's ops by their own time. The Chrome trace
@@ -356,8 +395,10 @@ def profile_batch(fn, label, out_dir, expect=()):
     named in ``expect`` (which ``fn`` launches), is taken once more; if it
     is empty again it is reported as empty, with no busy time or idle
     share, and if it still lacks an expected kernel, as incomplete, its
-    busy time a lower bound. Returns the kernels as (ms, count, name),
-    longest first ([] for an empty profile)."""
+    busy time a lower bound. Where ``ranges`` is given, each of its keys
+    names ``record_function`` ranges whose kernels' device ms it gets
+    (None where the trace attributes none). Returns the kernels as (ms,
+    count, name), longest first ([] for an empty profile)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -372,8 +413,9 @@ def profile_batch(fn, label, out_dir, expect=()):
             wall = (time.perf_counter() - t0) * 1e3
         rows, busy = [], 0.0
         for e in prof.key_averages():
-            if "CUDA" not in str(getattr(e, "device_type", "")):
-                continue
+            if ("CUDA" not in str(getattr(e, "device_type", ""))
+                    or getattr(e, "is_user_annotation", False)):
+                continue                  # host ops; ranges' spans on the card
             dt = getattr(e, "self_device_time_total", None)
             if dt is None:
                 dt = getattr(e, "self_cuda_time_total", 0.0)
@@ -391,6 +433,8 @@ def profile_batch(fn, label, out_dir, expect=()):
             f"{wall:.3f} ms under the profiler); not a measurement")
         return []
     rows.sort(reverse=True)
+    for name in ranges or ():
+        ranges[name] = _device_ms(prof, name)
     if missing:
         log(f"  profile {label}: INCOMPLETE (no kernel named {missing} "
             f"recorded twice): wall {wall:.3f} ms under the profiler, card "
@@ -2262,6 +2306,332 @@ def serve_path(dev, tag, zero_counts):
     return res, {k: (a, kw) for k, (_, a, kw) in calls.items()}
 
 
+# ---------------------------------------------------------------- training
+TRAIN_STEPS = 8                 # gemma-2b steps at full width and depth
+TRAIN_DATA = dict(vocab_size=256_000, seq_len=128, global_batch=8)
+SELECT_STEPS = 3                # steps of the per-layer select comparison
+
+
+def _train_steps(built, params, opt, pipe, steps, first, fa, n_layers,
+                 losses, step_ms):
+    """``steps`` train steps from pipeline step ``first``: host-clock ms to
+    the loss on the host, each step's loss; K7 must launch exactly twice a
+    layer a step (the forward and remat's recompute)."""
+    import torch
+
+    for s in range(first, first + steps):
+        batch = pipe.global_batch_at(s)
+        before = fa.LAUNCHES["flash_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = built["step"](params, opt, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        k7 = fa.LAUNCHES["flash_attention"] - before
+        if k7 != 2 * n_layers:
+            raise AssertionError(f"step {s}: {k7} K7 launches, not 2 x "
+                                 f"{n_layers}")
+    return params, opt
+
+
+def _tiny_trainer_checks(dev, tag):
+    """Phase 3g (c): the fault-tolerant Trainer on the card at the tiny
+    gemma (checkpoints under a temporary directory, removed after): crash
+    recovery, giving up after max_restarts, a resume equal bit for bit to
+    the uninterrupted run, and ``python -m repro_torch.launch.train``."""
+    import tempfile
+
+    from repro_torch.configs import get_tiny
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig
+
+    cfg = get_tiny("gemma_2b")
+    ocfg = OptimConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=8)
+
+    def trainer(d, steps, **kw):
+        return Trainer(cfg=cfg, ocfg=ocfg, tcfg=TrainConfig(),
+                       rcfg=TrainerConfig(total_steps=steps,
+                                          checkpoint_every=4,
+                                          checkpoint_dir=d,
+                                          **kw.pop("rcfg", {})),
+                       data_cfg=dcfg, device=dev, **kw)
+
+    with tempfile.TemporaryDirectory() as root:
+        boom = {"armed": True}
+
+        def inject(step):
+            if step == 5 and boom["armed"]:
+                boom["armed"] = False
+                raise RuntimeError("injected failure")
+
+        tr = trainer(os.path.join(root, "crash"), 7, failure_injector=inject)
+        out = tr.run()
+        steps = [h["step"] for h in tr.history]
+        if out["final_step"] != 7 or out["restarts"] != 1 or steps != [
+                0, 1, 2, 3, 4, 4, 5, 6] or tr.history[4]["loss"] != \
+                tr.history[5]["loss"]:
+            raise AssertionError(f"crash recovery: {out}, steps {steps}")
+
+        def always_fail(step):
+            raise RuntimeError("permanently broken")
+
+        tr = trainer(os.path.join(root, "giveup"), 5,
+                     rcfg={"max_restarts": 2}, failure_injector=always_fail)
+        try:
+            tr.run()
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("the trainer did not give up")
+        if tr.restarts != 3:
+            raise AssertionError(f"gave up after {tr.restarts} restarts")
+
+        d = os.path.join(root, "resume")
+        first = trainer(d, 4).run()["losses"]
+        tail = trainer(d, 6).run()["losses"]
+        whole = trainer(os.path.join(root, "whole"), 6).run()["losses"]
+        if first != whole[:4] or tail != whole[4:]:
+            raise AssertionError(f"resume not bit-exact: {first} + {tail} "
+                                 f"against {whole}")
+        log(f"  Trainer, tiny gemma on the card: crash at step 5 recovered "
+            f"from the step-4 checkpoint (steps {steps}, step 4's loss "
+            f"repeated bit for bit); gave up after max_restarts=2 with 3 "
+            f"restarts; steps 0-4, checkpoint, a new Trainer 4-6 equal bit "
+            f"for bit to an uninterrupted 0-6 run (losses {whole[0]:.6f} -> "
+            f"{whole[-1]:.6f}) {tag}")
+
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "gemma_2b", "--tiny", "--steps", "8", "--ckpt-dir",
+             os.path.join(root, "cli")],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        if out.returncode or not out.stdout.startswith(
+                "arch=gemma-2b steps=8 restarts=0 loss"):
+            raise AssertionError(f"python -m repro_torch.launch.train --tiny "
+                                 f"exited {out.returncode}: {out.stdout} "
+                                 f"{out.stderr[-2000:]}")
+        log(f"  python -m repro_torch.launch.train --arch gemma_2b --tiny "
+            f"--steps 8 on the card: {out.stdout.strip()} "
+            f"({time.perf_counter() - t0:.1f} s with the interpreter's start)")
+
+
+def train_path(dev, tag, zero_counts):
+    """Phase 3g: training on the card. (a) K7's gradient at the training
+    operand against plain autograd, and K7 timed there; (b) gemma-2b at
+    full width and depth, ``TRAIN_STEPS`` steps of ``make_train_step``
+    (remat "full", the full float32 logits), one profiled step, and the
+    same step with the stack indexed per layer instead of split once;
+    (c) the Trainer and the CLI at the tiny gemma. Returns its
+    measurements."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma_2b")
+    res = {}
+
+    # (a) K7's gradient at the training operand: q (8, 128, 8, 256), k and
+    # v (8, 128, 1, 256), bf16, causal
+    B, S = TRAIN_DATA["global_batch"], TRAIN_DATA["seq_len"]
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((B, S, Hq, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev).bfloat16()
+    v = (torch.rand((B, S, Hkv, D), generator=g, device=dev) * 2
+         - 1).bfloat16()
+    up = torch.randn(q.shape, generator=g, device=dev).bfloat16()
+    saved = dict(fa.LAUNCHES)
+    a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = layers_mod.blocked_attention(*a, causal=True, q_chunk=cfg.q_chunk,
+                                       kv_chunk=cfg.kv_chunk)
+    got = torch.autograd.grad(out, a, up)
+    if fa.LAUNCHES["flash_attention"] != saved["flash_attention"] + 1:
+        raise AssertionError("the attention Function did not launch K7")
+    b = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_plain(*b, causal=True), b,
+                               up.float())
+    worst = []
+    for name, x, y in zip("qkv", got, want):
+        d = (x.float() - y).abs()
+        if not bool((d <= 4e-3 * torch.clamp(y.abs(), min=1)).all()):
+            raise AssertionError(f"K7's d{name} differs from plain autograd "
+                                 f"by {float(d.max())}")
+        worst.append(float(d.max()))
+
+    def fwd_bwd():
+        o = layers_mod.blocked_attention(*a, causal=True)
+        return torch.autograd.grad(o, a, up)
+
+    res["attn_fwd_bwd_ms"] = cuda_ms(fwd_bwd, 10)
+    fa.LAUNCHES.update(saved)                 # comparisons do not count
+    k7 = check_flash_call(fa, (q, k, v), {"causal": True})
+    res["k7_train"] = k7
+    log(f"  K7's gradient at q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 "
+        f"causal (the Function: K7 forward, the blocked recompute in float32 "
+        f"backward) against plain autograd in float32: dq, dk, dv within "
+        f"{worst[0]:.4g}, {worst[1]:.4g}, {worst[2]:.4g} (tolerance 4e-3 * "
+        f"max(1, |plain|)); forward and backward {res['attn_fwd_bwd_ms']:.4f}"
+        f" ms {tag}")
+    log(f"  flash_attention, 3g training operand ({k7['shape']}): kernel "
+        f"{k7['ms']:.6f} ms, plain {k7['plain_ms']:.2f} ms, "
+        f"scaled_dot_product_attention {k7['library_ms']:.6f} ms, bound "
+        f"{k7['bound_ms']:.6f} ms ({k7['bound_by']}); within "
+        f"{k7['max_abs_err']:.4g} of plain {tag}")
+    del q, k, v, up, a, b, got, want, out
+
+    # (b) gemma-2b at full width and depth
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=8)
+    built = make_train_step(cfg, ocfg, TrainConfig(microbatches=1),
+                            device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()      # what earlier phases keep
+    t0 = time.perf_counter()
+    params, opt = built["init"](SEED)
+    torch.cuda.synchronize()
+    n_params = cfg.param_count()
+    state_gb = (torch.cuda.memory_allocated() - held) / 1e9
+    log(f"  gemma-2b at full width and depth ({cfg.n_layers} layers, remat "
+        f"{cfg.remat!r}, ce_chunk {cfg.ce_chunk}): {n_params:,} parameters, "
+        f"init from seed {SEED} with AdamW state in "
+        f"{time.perf_counter() - t0:.1f} s, {state_gb:.2f} GB on the card "
+        f"(besides {held / 1e9:.2f} GB that earlier phases hold for phase "
+        f"4)")
+    pipe = TokenPipeline(DataConfig(**TRAIN_DATA))
+    tokens = B * S
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    zero_counts()
+    params, opt = _train_steps(built, params, opt, pipe, TRAIN_STEPS, 0, fa,
+                               cfg.n_layers, losses, step_ms)
+    res["launches"] = fa.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if res["launches"] != 2 * cfg.n_layers * TRAIN_STEPS:
+        raise AssertionError(f"{res['launches']} K7 launches in "
+                             f"{TRAIN_STEPS} steps")
+    if not peak < total:
+        raise AssertionError(f"peak {peak} bytes of {total}")
+    med = statistics.median(step_ms[1:])
+    flops = 6.0 * n_params * tokens
+    res.update(losses=losses, step_ms=med, first_ms=step_ms[0],
+               tokens_s=tokens / (med / 1e3),
+               mfu=flops / (med / 1e3 * BF16_TENSOR_FLOPS),
+               peak_gb=(peak - held) / 1e9, total_gb=total / 1e9)
+    log(f"  {TRAIN_STEPS} steps, B = {B} x {S} tokens: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; K7 launches {res['launches']} = 2 x {cfg.n_layers} x "
+        f"{TRAIN_STEPS} {tag}")
+    log(f"  train step (host clock to the loss on the host): median of steps "
+        f"2-{TRAIN_STEPS} {med:.3f} ms (first {step_ms[0]:.1f} ms), "
+        f"{res['tokens_s']:,.0f} tokens/s, model flops share (mfu) "
+        f"{res['mfu']:.4f} = 6 x {n_params:.4g} x {tokens} / ({med:.3f} ms x "
+        f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s); peak allocated by the "
+        f"steps {res['peak_gb']:.2f} GB ({peak / 1e9:.2f} GB with earlier "
+        f"phases' of {res['total_gb']:.2f} GB) {tag}")
+
+    # one profiled step, by kernel kind and by range
+    saved = dict(fa.LAUNCHES)
+    ranges = {"adamw": None, "flash_attn_bwd": None, "ce_loss": None}
+    nxt = [TRAIN_STEPS]
+
+    def one_step():
+        nonlocal params, opt
+        params, opt, m = built["step"](params, opt,
+                                       pipe.global_batch_at(nxt[0]))
+        nxt[0] += 1
+        return m["loss"].item()
+
+    prof = profile_batch(one_step, "train_gemma2b_B8", ROOT / "chiprun_out",
+                         expect=("flash_attention",), ranges=ranges)
+
+    def card_ms(words):
+        return sum(dt for dt, _, key in prof
+                   if any(w in key.lower() for w in words))
+
+    weights = [p for p in leaves(params, torch.is_tensor)]
+    cast_ms = cuda_ms(lambda: [p.to(torch.bfloat16) for p in weights], 3)
+    fa.LAUNCHES.update(saved)                 # measurements do not count
+    res.update(prof_busy=sum(dt for dt, _, _ in prof),
+               prof_k7=card_ms(("flash_attention",)),
+               prof_gemm=card_ms(("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                                  "cublas", "splitk")),
+               prof_copy=card_ms(("copy",)),
+               prof_embed=card_ms(("indexing_backward", "index_put",
+                                   "radixsort", "onesweep", "fillfunctor")),
+               ranges=ranges, cast_ms=cast_ms)
+    names = {"adamw": "AdamW", "flash_attn_bwd": "the attention recompute "
+             "(18 backward ranges)", "ce_loss": "the forward and the loss"}
+    rng_txt = ", ".join(f"{names[k]} {v:.4f} ms" if v is not None else
+                        f"{names[k]} not measured" for k, v in ranges.items())
+    log(f"  one profiled step by kind: GEMMs {res['prof_gemm']:.4f} ms, copy "
+        f"kernels (weight and activation casts) {res['prof_copy']:.4f} ms, "
+        f"K7 {res['prof_k7']:.4f} ms, the embedding gradient (its 2.1 GB "
+        f"zero fill, the index sort, index_put with accumulate) "
+        f"{res['prof_embed']:.4f} ms, "
+        f"of {res['prof_busy']:.4f} ms card busy ({res['prof_busy'] / med:.3f}"
+        f" of the unprofiled median step); kernels by range: {rng_txt}; "
+        f"every weight cast to bf16 once {cast_ms:.4f} ms (CUDA events) "
+        f"{tag}")
+
+    # the same steps with each stacked leaf indexed per layer (a select a
+    # layer, each with a full-size zero gradient of its stacked leaf)
+    split = lm_mod._split_layers
+    lm_mod._split_layers = lambda sp: [lm_mod._layer(sp, i)
+                                       for i in range(lm_mod._n_layers(sp))]
+    sel_losses, sel_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        params, opt = _train_steps(built, params, opt, pipe, SELECT_STEPS,
+                                   nxt[0], fa, cfg.n_layers, sel_losses,
+                                   sel_ms)
+    finally:
+        lm_mod._split_layers = split
+    sel_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    spl_losses, spl_ms = [], []
+    params, opt = _train_steps(built, params, opt, pipe, SELECT_STEPS,
+                               nxt[0] + SELECT_STEPS, fa, cfg.n_layers,
+                               spl_losses, spl_ms)
+    spl_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    fa.LAUNCHES.update(saved)
+    res.update(select_ms=statistics.median(sel_ms[1:]),
+               split_ms=statistics.median(spl_ms[1:]), select_peak_gb=sel_peak,
+               split_peak_gb=spl_peak)
+    log(f"  stack indexed per layer (select) against split once (unbind), "
+        f"{SELECT_STEPS} steps each, in turns: select {res['select_ms']:.3f} "
+        f"ms a step (median of the last {SELECT_STEPS - 1}; peak "
+        f"{sel_peak:.2f} GB), split {res['split_ms']:.3f} ms (peak "
+        f"{spl_peak:.2f} GB) {tag}")
+    del params, opt, built, weights, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the Trainer and the CLI at the tiny gemma
+    _tiny_trainer_checks(dev, tag)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 3g: {res['phase_s']:.1f} s")
+    return res
+
+
 # --------------------------------------------------------------- main path
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2626,6 +2996,10 @@ def main() -> int:
     serving, k7_serve = serve_path(dev, tag, zero_counts)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 3g: training, gemma-2b at full width and depth {tag}")
+    training = train_path(dev, tag, zero_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {"verify_grouped": amih_counts["verify_grouped"],
                 "probe_walk": amih_counts["probe_walk"],
                 "probe_walk_cluster": amih_counts["probe_walk_cluster"],
@@ -2637,7 +3011,7 @@ def main() -> int:
                 "blockmax_scan": scan_counts["blockmax_scan"],
                 "verify_tuples": scan_counts["verify_tuples"],
                 "flash_attention": retrieval["launches"]
-                + serving["launches"]}
+                + serving["launches"] + training["launches"]}
     log(f"  kernel launches, AMIH path: {amih_counts}; K2/K3 by wrapper "
         f"and query rows: " + ", ".join(
             f"{name} B={rows}: {n}"
@@ -2874,6 +3248,16 @@ def main() -> int:
         f"at {r['group_big']} rows), {r['decode_steps']} decode steps, "
         f"{r['prefills']} prefills, K7 launches {r['launches']}; K7 at the "
         f"decode operand {e['ms']:.6f} ms (bound {e['bound_ms']:.6f}, SDPA "
+        f"{e['library_ms']:.6f})")
+    r = training
+    e = r["k7_train"]
+    log(f"  training (gemma-2b, B = 8 x 128): step {r['step_ms']:.3f} ms "
+        f"(median of steps 2-{TRAIN_STEPS}), {r['tokens_s']:,.0f} tokens/s, "
+        f"mfu {r['mfu']:.4f}, peak {r['peak_gb']:.2f} GB, losses "
+        f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, K7 launches "
+        f"{r['launches']}; stack by select {r['select_ms']:.3f} ms vs split "
+        f"{r['split_ms']:.3f} ms; K7 at the training operand "
+        f"{e['ms']:.6f} ms (bound {e['bound_ms']:.6f}, SDPA "
         f"{e['library_ms']:.6f})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

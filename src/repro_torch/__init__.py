@@ -6,8 +6,9 @@ The port: exact top-K angular search with AMIH on the card,
 ``make_engine("amih", db, p)`` (the device walk by default) ->
 ``knn_batch`` -> ``(ids, sims, EngineStats)``, its host walk, the linear
 scan and the single table; the shard, pipeline and cluster layers and
-observability; retrieval serving and token serving on the dense LM
-(``serve``, ``models``, ``launch.serve``). Its seven hand-written CUDA
+observability; retrieval serving, token serving and training on the
+dense LM (``serve``, ``models``, ``optim``, ``checkpoint``, ``train``,
+``launch.serve``, ``launch.train``). Its seven hand-written CUDA
 kernel libraries live in ``kernels/csrc``. Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.
 """

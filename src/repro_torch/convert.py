@@ -15,7 +15,9 @@ the port's dict of tensors with the same keys, shapes and dtypes.
 ``cache_from_reference`` does the same for the reference's decode cache
 (``{"layers": LayerCache(attn=AttnCache(k, v), ssm=None)}``, leaves as
 numpy, bf16 ones as ``ml_dtypes.bfloat16``) and returns the port's
-``LayerCache``/``AttnCache`` tree.
+``LayerCache``/``AttnCache`` tree. ``opt_state_from_reference`` does the
+same for the reference's AdamW state (``init_state``/``apply_updates``:
+the step and the moments, int8 ``QuantMoment``s included).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from .core.packing import WORD_DTYPE, n_words, substring_spans
 from .kernels.ops import resolve_device
 
 __all__ = ["cache_from_reference", "index_from_reference", "index_state",
-           "params_from_reference"]
+           "opt_state_from_reference", "params_from_reference"]
 
 
 def index_state(index) -> Dict[str, Any]:
@@ -92,7 +94,7 @@ def _tensor(x, dev) -> torch.Tensor:
         a = a.view(np.int16)
     if not a.flags.writeable:              # torch wants memory it may own
         a = a.copy()
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    t = torch.from_numpy(np.ascontiguousarray(a)).reshape(a.shape)
     return (t.view(torch.bfloat16) if bf16 else t).to(dev)
 
 
@@ -125,3 +127,24 @@ def cache_from_reference(tree, device=None):
                                               v=_tensor(attn.v, dev)),
                                ssm=None)
     return out
+
+
+def opt_state_from_reference(tree, device=None):
+    """The port's AdamW state from the reference's state tree of numpy
+    leaves (``{"step", "moments"}``, each moment an array or a
+    ``QuantMoment(q, scale)``), on ``device`` (None: the CUDA device)."""
+    from .optim.adamw import QuantMoment
+
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, tuple) and getattr(x, "_fields", None) == (
+                "q", "scale"):
+            return QuantMoment(q=_tensor(x.q, dev), scale=_tensor(x.scale,
+                                                                  dev))
+        return _tensor(x, dev)
+
+    return {"step": _tensor(tree["step"], dev),
+            "moments": conv(tree["moments"])}

@@ -1,1 +1,2 @@
-"""The port's entry points (``python -m repro_torch.launch.serve``)."""
+"""The port's entry points (``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train``)."""

@@ -1,8 +1,8 @@
 """Model API of the port (the reference's ``models/api.py`` ``Model``, dense
-family): parameter initialisation, the scoring forward, prefill, the
-decode step and the decode cache. Each call runs on ``device`` (None: the
-CUDA device, which raises without one); the enc-dec family, the loss and
-training are ROADMAP A11."""
+family): parameter initialisation and specs, the loss, the scoring
+forward, prefill, the decode step and the decode cache. Each call runs on
+``device`` (None: the CUDA device, which raises without one); the enc-dec
+family is ROADMAP A11."""
 
 from __future__ import annotations
 
@@ -29,6 +29,12 @@ class Model:
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
         return lm.init_params(self.cfg, gen, device=dev)
+
+    def param_specs(self):
+        return lm.param_specs(self.cfg)
+
+    def loss(self, params, batch, device=None):
+        return lm.loss_fn(self.cfg, params, batch, device=device)
 
     def forward(self, params, batch, device=None):
         return lm.forward(self.cfg, params, batch, device=device)

@@ -69,7 +69,8 @@ def attention_full(x, p, cfg, positions, *, causal: bool = True,
         cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    out = blocked_attention(q, k, v, causal=causal, window=window)
+    out = blocked_attention(q, k, v, causal=causal, window=window,
+                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, (k, v)
 

@@ -1,8 +1,8 @@
-"""Architecture config of the port's LM encoder (a copy of the reference's
+"""Architecture config of the port's LM (a copy of the reference's
 ``models/common.py`` ``ArchConfig``, with torch dtypes).
 
 Every parameter shape derives from one frozen ``ArchConfig``. The port
-runs only the dense-family forward that retrieval serving's encoder uses;
+runs only the dense family (the retrieval encoder, serving, training);
 the fields of the other families are kept so that a reference config
 copies over unchanged, and the code that would read them raises
 ``NotImplementedError`` (ROADMAP A11).

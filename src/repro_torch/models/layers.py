@@ -1,14 +1,16 @@
 """Core layers of the port's LM: norms, RoPE, MLPs and attention (a port
 of the reference's ``models/layers.py``).
 
-``blocked_attention`` (prefill, the encoder) and ``decode_attention`` (one
-query row against a linear KV cache, with ``valid_len``) run K7
-(``kernels.flash_attention``): the kernel on a CUDA tensor, its plain
-version on a CPU tensor, as the reference runs its Pallas kernel on the
-TPU. ``_blocked_attention_impl`` and ``_decode_attention_impl`` are the
-reference's pure paths, which the reference runs off the TPU; the port
-keeps them as second plain versions that the tests hold against the
-reference. No caller of the port shifts the query block (the reference's
+``blocked_attention`` (training, prefill, the encoder) and
+``decode_attention`` (one query row against a linear KV cache, with
+``valid_len``) run K7 (``kernels.flash_attention``): the kernel on a CUDA
+tensor, its plain version on a CPU tensor, as the reference runs its
+Pallas kernel on the TPU. ``_blocked_attention_impl`` and
+``_decode_attention_impl`` are the reference's pure paths, which the
+reference runs off the TPU; the port keeps them as second plain versions
+that the tests hold against the reference, and ``blocked_attention``'s
+gradient recomputes through ``_blocked_attention_impl``, as the
+reference's does. No caller of the port shifts the query block (the reference's
 ``q_offset``), so neither blocked function takes one.
 """
 
@@ -81,12 +83,52 @@ def mlp(x, params, activation: str):
 
 
 # ------------------------------------------------------------- attention
-def blocked_attention(q, k, v, *, causal: bool, window: int = 0):
+def blocked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      q_chunk: int = 1024, kv_chunk: int = 1024):
     """Online-softmax attention: (B, Sq, Hq, D) queries against
     (B, Sk, Hkv, D) keys and values -> (B, Sq, Hq, D), through K7 (the
-    kernel on a CUDA tensor, its plain version on a CPU tensor)."""
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window)
+    kernel on a CUDA tensor, its plain version on a CPU tensor). Its
+    gradient recomputes through ``_blocked_attention_impl`` in
+    ``q_chunk`` x ``kv_chunk`` blocks (``_FlashFwdOracleBwd``)."""
+    return _FlashFwdOracleBwd.apply(q, k, v, causal, window, q_chunk,
+                                    kv_chunk)
+
+
+class _FlashFwdOracleBwd(torch.autograd.Function):
+    """K7's forward with the reference's pure blocked attention as its
+    gradient (the reference's ``_flash_fwd_oracle_bwd`` custom vjp): the
+    backward recomputes the attention through ``_blocked_attention_impl``
+    with autograd and returns its vjp. The reference has no backward
+    kernel, so the backward is torch ops.
+
+    The recompute runs on float32 copies of q, k and v, and the gradients
+    are rounded to their inputs' dtype once, at the end. (The blocked
+    attention computes in float32 anyway; on bf16 inputs it would also
+    round P, and so P's cotangent, to bf16, which puts the gradients up
+    to several bf16 steps off the float32 gradient.) In float32 the two
+    are the same computation."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, q_chunk, kv_chunk)
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, q_chunk, kv_chunk = ctx.opts
+        with torch.profiler.record_function("flash_attn_bwd"), \
+                torch.enable_grad():
+            saved = ctx.saved_tensors
+            q, k, v = (t.detach().float().requires_grad_(True)
+                       for t in saved)
+            out = _blocked_attention_impl(q, k, v, causal=causal,
+                                          window=window, q_chunk=q_chunk,
+                                          kv_chunk=kv_chunk)
+            grads = torch.autograd.grad(out, (q, k, v), g.float())
+        return (*(d.to(t.dtype) for d, t in zip(grads, saved)), None, None,
+                None, None)
 
 
 def _chunk_mask(q_pos, k_pos, causal: bool, window: int):

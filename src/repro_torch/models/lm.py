@@ -1,36 +1,55 @@
 """The port's decoder LM, dense family (the reference's ``models/lm.py``):
 parameter templates, random init, embedding, the layer stack, the LM head,
-the scoring forward, the decode cache, prefill and the decode step.
+the scoring forward, the loss, the decode cache, prefill and the decode
+step.
 
 Parameters are a plain dict of tensors with the reference's tree: per
 layer tensors stacked on a leading "layers" axis under ``"layers"``, the
 embedding, the final norm, and ``"unembed"`` where embeddings are untied.
 ``init_params`` draws them as the reference does (normal, std 0.02 and
 0.02 / sqrt(2 L) for output projections, norms at 1; ``param_dtype``),
-from a ``torch.Generator`` on the target device. The forward loops over
-the stacked layers; rematerialisation is a training concern and is not
-ported.
+from a ``torch.Generator`` on the target device; ``param_specs`` gives
+their shapes and dtypes on the ``meta`` device.
+
+The stack splits each stacked leaf once a forward (``unbind``), so under
+autograd each leaf's gradient comes back as one stack, not as a full-size
+zero gradient per layer. Under autograd each layer is rematerialised as
+``cfg.remat`` says (the reference's ``_remat_policy``, with
+``torch.utils.checkpoint``): ``"full"`` recomputes the whole layer in the
+backward, K7 included, ``"dots"`` keeps the matmul outputs, ``"none"``
+keeps everything. ``loss_fn`` is next-token cross-entropy plus a 1e-4
+z-loss, over the full float32 logits or, with ``cfg.ce_chunk``, over
+checkpointed chunks of ``ce_chunk`` tokens.
 
 The decode cache is ``{"layers": LayerCache(attn=AttnCache(k, v),
 ssm=None)}`` with k and v laid out (layers, batch, kv_len, kv_heads,
 head_dim) in the compute dtype, as the reference's. ``decode_step``
 writes its token's k and v into that cache in place (the reference's
 serving engine donates it) and returns it. ``prefill``, ``forward``,
-``init_cache`` and ``decode_step`` run on ``device`` (None: the CUDA
-device; it raises without one) and refuse parameters that lie elsewhere.
-MoE, SSM, hybrid, enc-dec and vlm, and the loss, are ROADMAP A11 and
-raise ``NotImplementedError``.
+``loss_fn``, ``init_cache`` and ``decode_step`` run on ``device`` (None:
+the CUDA device; it raises without one) and refuse parameters that lie
+elsewhere. MoE, SSM, hybrid, enc-dec and vlm, and MoE's loss terms, are
+ROADMAP A11 and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ..kernels.ops import resolve_device
+from ..tree import leaves_with_path, tree_map, unflatten
 from .blocks import AttnCache, LayerCache, block_decode, block_forward
 from .common import ArchConfig, not_ported
 from .layers import apply_norm
@@ -47,7 +66,9 @@ __all__ = [
     "init_params",
     "layer_template",
     "lm_head",
+    "loss_fn",
     "model_template",
+    "param_specs",
     "prefill",
 ]
 
@@ -121,17 +142,23 @@ def model_template(cfg: ArchConfig):
     return t
 
 
-def _leaves(tree, path=()):
-    """(path, leaf) pairs in sorted key order, as jax flattens dicts."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], path + (k,))
-    else:
-        yield path, tree
+def _is_pspec(x) -> bool:
+    return isinstance(x, PSpec)
 
 
 def count_params(cfg: ArchConfig) -> int:
-    return sum(math.prod(s.shape) for _, s in _leaves(model_template(cfg)))
+    return sum(math.prod(s.shape) for _, s in leaves_with_path(
+        model_template(cfg), _is_pspec))
+
+
+def param_specs(cfg: ArchConfig):
+    """The parameters' shapes and dtypes, allocated nowhere (tensors on
+    the ``meta`` device; the reference returns ShapeDtypeStructs)."""
+    pdt = cfg.pdtype()
+    return tree_map(
+        lambda s: torch.empty(s.shape, device="meta",
+                              dtype=torch.float32 if s.kind == "f" else pdt),
+        model_template(cfg), _is_pspec)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device=None):
@@ -139,7 +166,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None):
     drawn from ``generator`` (which must live on ``device``)."""
     pdt = cfg.pdtype()
     out: Dict[str, Any] = {}
-    for path, spec in _leaves(model_template(cfg)):
+    for path, spec in leaves_with_path(model_template(cfg), _is_pspec):
         dt = torch.float32 if spec.kind == "f" else pdt
         if spec.init == "zeros":
             t = torch.zeros(spec.shape, dtype=dt, device=device)
@@ -189,11 +216,58 @@ def _n_layers(stack_params) -> int:
     return stack_params["ln1"]["scale"].shape[0]
 
 
+def _split_layers(stack_params):
+    """Per-layer dicts of views into the stacked leaves, each leaf split
+    once (``unbind``, whose backward is one stack). Indexing each leaf per
+    layer instead would give every layer's backward a full-size zero
+    gradient of the stacked leaf to fill and add."""
+    stacked = [leaf.unbind(0) for _, leaf in leaves_with_path(stack_params)]
+    return [unflatten(stack_params, [col[i] for col in stacked])
+            for i in range(_n_layers(stack_params))]
+
+
+# the matmul outputs that remat "dots" keeps (the reference's
+# dots_with_no_batch_dims_saveable, as torch's einsum and matmul lower)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(cfg):
+    """The ``context_fn`` of the per-layer checkpoint for ``cfg.remat``, or
+    None where nothing is rematerialised (the reference's
+    ``_remat_policy``)."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+    if cfg.remat == "full":
+        return noop_context_fn
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+def _layer_out(cfg, lp, h, positions, window):
+    return block_forward(cfg, lp, h, positions, window=window)[0]
+
+
 def _apply_stack(cfg, stack_params, h, positions, *, window: int = 0):
-    """The stacked layers in order."""
-    for i in range(_n_layers(stack_params)):
-        h, _, _ = block_forward(cfg, _layer(stack_params, i), h, positions,
-                                window=window)
+    """The stacked layers in order; where autograd records them, each is
+    rematerialised as ``cfg.remat`` says."""
+    recorded = torch.is_grad_enabled() and (h.requires_grad or any(
+        t.requires_grad for _, t in leaves_with_path(stack_params)))
+    context_fn = _remat_context(cfg) if recorded else None
+    for lp in _split_layers(stack_params):
+        if context_fn is None:
+            h = _layer_out(cfg, lp, h, positions, window)
+        else:
+            h = checkpoint(_layer_out, cfg, lp, h, positions, window,
+                           use_reentrant=False, context_fn=context_fn,
+                           preserve_rng_state=False)
     return h
 
 
@@ -222,6 +296,81 @@ def forward(cfg: ArchConfig, params, batch, *, device=None):
     """Scoring forward (causal, K7): (logits (B, S, V) float32, aux)."""
     h, aux = forward_hidden(cfg, params, batch, device=device)
     return lm_head(cfg, params, h), aux
+
+
+# ------------------------------------------------------------------ loss
+def _unembed_weights(cfg, params):
+    if cfg.tie_embeddings:
+        return params["embed"].to(cfg.cdtype()).T
+    return params["unembed"].to(cfg.cdtype())
+
+
+def _ce_chunk(h_i, y_i, w):
+    lg = (h_i @ w).float()                   # (Tc, V): the only copy
+    lz = torch.logsumexp(lg, dim=-1)
+    ll = lg.gather(-1, torch.clamp(y_i, min=0)[:, None])[:, 0]
+    m = (y_i >= 0).float()
+    return ((lz - ll) * m).sum(), ((lz ** 2) * m).sum(), m.sum()
+
+
+def _chunked_ce(cfg, params, h, targets):
+    """Blocked cross-entropy (+z-loss): the (tokens, vocab) logits exist
+    only at (ce_chunk, vocab), and under autograd each chunk is
+    recomputed in the backward. Returns (ce_sum, z_sum, count)."""
+    B, S, d = h.shape
+    w = _unembed_weights(cfg, params)
+    T = B * S
+    hc = h.reshape(T, d)
+    yc = targets.reshape(T)
+    Tc = min(cfg.ce_chunk, T)
+    n = -(-T // Tc)
+    pad = n * Tc - T
+    if pad:
+        hc = F.pad(hc, (0, 0, 0, pad))
+        yc = F.pad(yc, (0, pad), value=-1)
+    hc = hc.reshape(n, Tc, d)
+    yc = yc.reshape(n, Tc)
+    remat = torch.is_grad_enabled() and (h.requires_grad or w.requires_grad)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    ce_sum, z_sum, cnt = zero, zero, zero
+    for i in range(n):
+        if remat:
+            c, z, m = checkpoint(_ce_chunk, hc[i], yc[i], w,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+        else:
+            c, z, m = _ce_chunk(hc[i], yc[i], w)
+        ce_sum, z_sum, cnt = ce_sum + c, z_sum + z, cnt + m
+    return ce_sum, z_sum, cnt
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, device=None):
+    """Next-token cross-entropy plus a 1e-4 z-loss. Returns (loss,
+    metrics ``{"ce", "zloss", "loss"}``), 0-d float32 tensors on the run's
+    device. ``ce_chunk > 0`` takes the blocked path (the same math, the
+    logits held a chunk at a time); 0 takes the full logits."""
+    with torch.profiler.record_function("ce_loss"):
+        dev, tokens = _placed(params, batch["tokens"], device)
+        targets = tokens[:, 1:]
+        if cfg.ce_chunk:
+            h, _ = forward_hidden(cfg, params, {"tokens": tokens},
+                                  device=dev)
+            ce_sum, z_sum, cnt = _chunked_ce(cfg, params, h[:, :-1],
+                                             targets)
+            denom = torch.clamp(cnt, min=1.0)
+            ce = ce_sum / denom
+            zloss = 1e-4 * z_sum / denom
+        else:
+            logits, _ = forward(cfg, params, {"tokens": tokens}, device=dev)
+            lg = logits[:, :-1]
+            logz = torch.logsumexp(lg, dim=-1)
+            ll = lg.gather(-1, targets[..., None])[..., 0]
+            mask = (targets >= 0).float()
+            denom = torch.clamp(mask.sum(), min=1.0)
+            ce = ((logz - ll) * mask).sum() / denom
+            zloss = 1e-4 * ((logz ** 2) * mask).sum() / denom
+    total = ce + zloss
+    return total, {"ce": ce, "zloss": zloss, "loss": total}
 
 
 # ------------------------------------------------------------------ cache

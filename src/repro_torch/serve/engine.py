@@ -27,7 +27,7 @@ import torch
 from ..kernels.ops import resolve_device
 from ..models import Model
 from ..models.common import ArchConfig
-from ..models.lm import _leaves
+from ..tree import leaves_with_path
 
 __all__ = ["ServeConfig", "ServeEngine", "Request"]
 
@@ -62,7 +62,7 @@ class ServeEngine:
         self.scfg = scfg
         self.model = Model(cfg)
         self.device = resolve_device(scfg.device)
-        for path, leaf in _leaves(params):
+        for path, leaf in leaves_with_path(params):
             if leaf.device != self.device:
                 raise ValueError(
                     f"parameter {'/'.join(path)} lies on {leaf.device}, the "

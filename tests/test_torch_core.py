@@ -366,14 +366,18 @@ def test_port_imports_neither_jax_nor_reference():
     # layers included
     subpackages = {f.parent.name for f in files}
     assert {"core", "kernels", "shard", "pipeline", "serve", "cluster",
-            "obs", "data", "models", "launch"} <= subpackages
+            "obs", "data", "models", "launch", "optim", "checkpoint",
+            "train"} <= subpackages
     src = ROOT / "src" / "repro_torch"
     for rel in ("shard/engines.py", "pipeline/shardpool.py",
                 "cluster/transport.py", "cluster/worker.py",
                 "cluster/coordinator.py", "cluster/local.py",
                 "cluster/launch.py", "cluster/smoke.py", "obs/export.py",
                 "obs/report.py", "obs/smoke.py", "data/pipeline.py",
-                "serve/engine.py", "launch/serve.py"):
+                "serve/engine.py", "launch/serve.py", "tree.py",
+                "optim/adamw.py", "optim/compression.py",
+                "checkpoint/checkpointer.py", "train/step.py",
+                "train/loop.py", "train/watchdog.py", "launch/train.py"):
         assert src / rel in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

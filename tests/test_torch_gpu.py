@@ -740,3 +740,68 @@ def test_serving_raises_when_the_kernel_does_not_build(cuda, monkeypatch):
     cfg = get_tiny("gemma_2b").replace(compute_dtype="float32")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _serve_tiny(cuda, Model(cfg).init_params(0, device=cuda), cfg)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 8, 1, 256), (2, 100, 4, 2, 64)])
+def test_k7_gradient_matches_plain_autograd(cuda, shape):
+    """K7's gradient (the autograd Function: K7 forward, the blocked
+    recompute in float32 backward) on bf16 inputs against plain autograd
+    through ``flash_attention_plain`` in float32 on the same inputs,
+    within K7's 4e-3 · max(1, |plain|); K7 launches once in the forward."""
+    from repro_torch.models import layers
+
+    B, S, Hq, Hkv, D = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q = torch.randn((B, S, Hq, D), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, S, Hkv, D), generator=g, device=cuda).bfloat16()
+    v = (torch.rand((B, S, Hkv, D), generator=g, device=cuda) * 2
+         - 1).bfloat16()
+    up = torch.randn(q.shape, generator=g, device=cuda).bfloat16()
+    a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    b = [t.float().requires_grad_(True) for t in (q, k, v)]
+    before = fa.LAUNCHES["flash_attention"]
+    out = layers.blocked_attention(*a, causal=True)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    got = torch.autograd.grad(out, a, up)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = torch.autograd.grad(fa.flash_attention_plain(*b, causal=True), b,
+                               up.float())
+    for x, y in zip(got, want):
+        assert x.dtype == torch.bfloat16
+        d = (x.float() - y).abs()
+        assert bool((d <= 4e-3 * torch.clamp(y.abs(), min=1)).all()), \
+            float(d.max())
+
+
+def test_tiny_train_step_on_card_equals_cpu(cuda):
+    """One tiny gemma train step in float32 on the card (K7 in the forward
+    and in remat's recompute: 2 launches a layer) against the same step on
+    the CPU, from the same parameters and batch: loss within 1e-5
+    relative, parameters within 1e-5 absolute (each moves by about
+    lr · sign(g)), moments within 1e-4 · max(1, max|cpu|)."""
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = get_tiny("gemma_2b").replace(compute_dtype="float32")
+    ocfg = OptimConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10)
+    batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                     global_batch=8)).global_batch_at(0)
+    card = make_train_step(cfg, ocfg, TrainConfig(), device=cuda)
+    host = make_train_step(cfg, ocfg, TrainConfig(), device="cpu")
+    p_c, o_c = card["init"](0)
+    p_h, o_h = _to(p_c, "cpu"), _to(o_c, "cpu")
+    before = fa.LAUNCHES["flash_attention"]
+    p_c, o_c, m_c = card["step"](p_c, o_c, batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 2 * cfg.n_layers
+    p_h, o_h, m_h = host["step"](p_h, o_h, batch)
+    for name in m_h:
+        np.testing.assert_allclose(float(m_c[name]), float(m_h[name]),
+                                   rtol=1e-5)
+    for x, y in zip(leaves(p_c, torch.is_tensor), leaves(p_h, torch.is_tensor)):
+        assert float((x.cpu() - y).abs().max()) <= 1e-5
+    for x, y in zip(leaves(o_c, torch.is_tensor), leaves(o_h, torch.is_tensor)):
+        scale = max(1.0, float(y.float().abs().max()))
+        assert float((x.cpu().float() - y.float()).abs().max()) <= 1e-4 * scale
