@@ -36,7 +36,11 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    16, 20, 48, 112, 320 and 512 between and above the kernel's widths) in
    float32 and bf16 against its
    plain version in float32 (float32 within 2e-5, bf16 within
-   4e-3 * max(1, |plain|));
+   4e-3 * max(1, |plain|)); the reference's kernel API (ROADMAP C-P4):
+   ``repro_torch.kernels.verify_tuples_grouped`` on a padded (B, C, W)
+   block, ``ops.verify_tuples_grouped_op``, ``ops.device_probe_scan_launch``
+   and ``ops.device_probe_scan_multi_launch`` on the phase's index, each
+   equal to the same call on CPU copies;
 3. the two exact paths at full size: n = 10,000,000 clustered codes
    (n_clusters = 256, flip_prob = 0.08), queries from
    ``synthetic_queries_packed`` (flip_prob = 0.05), p in {64, 128},
@@ -143,7 +147,9 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       ``Model.forward``'s causal logits at its position wherever their
       top-2 margin exceeds ``TIE_TOL`` (4 x the largest gap between the
       decode and forward logits that the run measures, a gap itself at
-      most 2^-4 of the largest logit); 4 requests served again one at a
+      most 2^-4 of the largest logit), and so in float32 compute (the same
+      2 requests through an engine on ``compute_dtype="float32"``, the gap
+      at most 2^-10 of the largest logit); 4 requests served again one at a
       time (``max_batch=1``) give the batch's tokens up to the first step
       whose margin is within ``TIE_TOL``; ``python -m
       repro_torch.launch.serve --arch gemma_2b --tiny --requests 4`` exits
@@ -171,8 +177,34 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       ``max_restarts``, a resume from a checkpoint equal bit for bit to the
       uninterrupted run) and ``python -m repro_torch.launch.train --arch
       gemma_2b --tiny --steps 8``, checkpoints under a temporary directory.
+   h. Token serving with llama3-8b at full width and depth (32 layers,
+      d_model 4096, 32 q heads over 8 kv heads of 128, d_ff 14336, SwiGLU,
+      vocab 128,256, untied ``unembed``; random float32 parameters from
+      seed 0, 32.1 GB, bf16 compute), exactly as f: the same 16 requests'
+      lengths and engine settings, the same checks (K7 launched 32 x
+      (prefills + decode steps), the teacher-forced argmax, one at a time,
+      the tiny CLI with ``--arch llama3_8b``) and the same prints, plus the
+      phase's peak allocation.
+   i. Training llama3-8b at full width, 8 of its 32 layers (2.80 B
+      parameters; the depth is the cut), as g (b): 8 steps of 8 x 128
+      tokens (vocab 128,256), remat "full": losses finite and falling, K7
+      2 x 8 times a step, the median step, tokens/s, ``mfu`` and the peak;
+      then ``python -m repro_torch.launch.train --arch llama3_8b --tiny``.
+   j. granite-3-8b and granite-34b at full width, 4 layers each (1.20 B
+      and 2.72 B parameters): one 96-token request through ``ServeEngine``
+      (``max_batch=8, max_seq=256, max_new_tokens=9``), one prefill and 8
+      decode steps, K7 launched 4 x 9 times, every token the causal
+      forward's argmax but where its margin is within ``TIE_FACTOR`` x the
+      measured gap, in bf16 and again in float32 compute, as f;
+      granite-34b's 48 q heads share one kv head (G = 48).
+   k. The four examples (``repro_torch.examples``) through their
+      ``main()`` at their reference's defaults (train_embedder: its
+      ~100M model, 30 of its 300 steps, checkpoints under a temporary
+      directory), each success line checked, each example's launches and
+      peak allocation printed; K2, the fused K4 and K7 must launch.
    Every kernel launch counter is set to 0 just before each path (a, d,
-   b) at each p, and before c, f and g's 8 steps, and read just after it; K2 launches count by
+   b) at each p, and before c, f, g's 8 steps, h, i's steps, each model
+   of j and each example of k, and read just after it; K2 launches count by
    form (grid, cluster), K3 by kernel (fused, map), and on path a also by
    wrapper and query rows;
 4. each kernel against its plain version again, on operands captured from
@@ -186,8 +218,10 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    the fused top-k and K5
    at the main path's B = 64 call and at its first query alone (B = 1);
    K1 at the host walk's largest call and at B = 1, C = 8 (the card's
-   per-launch floor for it); K7 at c's encoder call and at f's decode
-   call with the most valid keys and its longest prefill, each
+   per-launch floor for it); K7 at c's encoder call, at f's and h's
+   decode call with the most valid keys and their longest prefill, at i's
+   training call (q (8, 128, 32, 128) causal) and at j's granite-34b
+   prefill and decode calls (G = 48), each
    also beside
    ``scaled_dot_product_attention`` on the same tensors and valid keys
    (its ``library_ms``, c's call in the ``kernels`` record; the port never
@@ -203,6 +237,7 @@ import argparse
 import contextlib
 import functools
 import gc
+import importlib
 import json
 import multiprocessing
 import os
@@ -684,7 +719,7 @@ def check_walk_calls(dp, rec, label, timed=frozenset(), reps=3):
     call of each name in ``timed``; returns per-name measurements."""
     import torch
 
-    from repro_torch.kernels import verify_tuples as vt
+    vt = importlib.import_module("repro_torch.kernels.verify_tuples")
 
     res = {}
     for name, calls in rec.calls.items():
@@ -1233,7 +1268,7 @@ def shard_path(p, m, db, batch, singles, eng, host, h_out, *, dev, tag,
     from repro_torch.core.engine import make_engine
     from repro_torch.kernels import device_probe as dp
     from repro_torch.kernels import hamming_scan as hs
-    from repro_torch.kernels import verify_tuples as vt
+    vt = importlib.import_module("repro_torch.kernels.verify_tuples")
     from repro_torch.pipeline import VerifyOverlap
 
     def walks():
@@ -1860,7 +1895,7 @@ def retrieval_path(dev, tag, zero_counts):
         sims_for_ids,
         topk_from_sims,
     )
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.models import Model
     from repro_torch.models import layers as layers_mod
     from repro_torch.obs import trace
@@ -2053,6 +2088,45 @@ TIE_FACTOR = 4.0
 GAP_BOUND = 2.0 ** -4
 
 
+# the same gap with float32 compute, where decode and forward differ by
+# float32 rounding only, may be at most 2^-10 of the largest logit: it
+# decides the tokens whose bf16 margins fall within the bf16 gap (a
+# random-init llama3-8b's logits span < 1, and its bf16 gap is ~5% of
+# the largest)
+GAP_BOUND_F32 = 2.0 ** -10
+
+
+def teacher_forced(model, params, prompt, toks, rows, bound, dev):
+    """One request's greedy tokens ``toks`` against the causal forward of
+    ``model`` over the prompt and the tokens: the decode logits ``rows``
+    (one per token) within ``bound`` x the largest forward logit, and each
+    token the forward's argmax wherever its top-2 margin exceeds
+    ``TIE_FACTOR`` x the measured gap. Returns (gap, scale, margin-limited
+    tokens)."""
+    import numpy as np
+    import torch
+
+    with torch.no_grad():
+        seq = np.concatenate([prompt, toks[:-1]])
+        logits, _ = model.forward(params, {"tokens": seq[None]}, device=dev)
+        f = logits[0, len(prompt) - 1:].cpu().numpy()
+        del logits
+    gap = float(np.abs(np.stack(rows) - f).max())
+    scale = float(np.abs(f).max())
+    if not gap <= bound * scale:
+        raise AssertionError(f"{model.cfg.name} ({model.cfg.compute_dtype}): "
+                             f"decode logits differ from the causal "
+                             f"forward's by {gap} (largest logit {scale})")
+    limited = 0
+    for j, tok in enumerate(toks):
+        if top2_margin(f[j]) <= TIE_FACTOR * gap:
+            limited += 1
+        elif tok != int(np.argmax(f[j])):
+            raise AssertionError(f"{model.cfg.name} token {j}: {tok}, the "
+                                 f"forward's argmax {int(np.argmax(f[j]))}")
+    return gap, scale, limited
+
+
 def top2_margin(row):
     """The largest logit of a row minus the second largest."""
     import numpy as np
@@ -2061,26 +2135,52 @@ def top2_margin(row):
     return float(b - a)
 
 
-def serve_path(dev, tag, zero_counts):
-    """Phase 3f: token serving at gemma-2b's full width through
-    ``ServeEngine`` (see the module docstring). Returns its measurements
-    and K7's main-path decode and prefill calls."""
+def _k7_capture(fa, calls, kinds=None):
+    """A stand-in for ``models.layers.flash_attention`` that keeps copies
+    of the operands of the decode call with the most valid keys, the
+    longest prefill, and (``kinds`` = {"train"}) the first call, then
+    calls K7 as the layer would."""
+
+    def capture(q, k, v, **kw):
+        if kinds and "train" in kinds:
+            kind, size = "train", 1
+        else:
+            kind = "prefill" if kw.get("valid_len") is None else "decode"
+            size = q.shape[1] if kind == "prefill" else kw["valid_len"]
+        if size > calls.get(kind, (0,))[0]:
+            calls[kind] = (size, tuple(t.detach().clone() for t in (q, k, v)),
+                           dict(kw))
+        return fa.flash_attention(q, k, v, **kw)
+
+    return capture
+
+
+def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f"):
+    """Phase 3f (gemma-2b) or 3h (llama3-8b): token serving at the
+    architecture's full width and depth through ``ServeEngine`` (see the
+    module docstring). Returns its measurements and K7's main-path decode
+    and prefill calls."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.models import Model
     from repro_torch.models import layers as layers_mod
     from repro_torch.serve import ServeConfig, ServeEngine
 
     t_phase = time.perf_counter()
-    cfg = get_config("gemma_2b")
+    cfg = get_config(arch)
     model = Model(cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()      # what earlier phases keep
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init_params(SEED, device=dev)
     torch.cuda.synchronize()
-    log(f"  gemma-2b at full width, random weights from seed {SEED}: init "
+    log(f"  {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+        f"{cfg.param_count():,} float32 parameters), random weights from "
+        f"seed {SEED}: init "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     rng = np.random.default_rng(SEED)           # phase 3c's corpus
@@ -2132,19 +2232,11 @@ def serve_path(dev, tag, zero_counts):
     # K7's operands on this path, for phase 4: the decode call with the
     # most valid keys and the longest prefill (copies: the cache moves on)
     calls = {}
-
-    def capture(q, k, v, **kw):
-        kind = "prefill" if kw.get("valid_len") is None else "decode"
-        size = q.shape[1] if kind == "prefill" else kw["valid_len"]
-        if size > calls.get(kind, (0,))[0]:
-            calls[kind] = (size, (q.clone(), k.clone(), v.clone()), dict(kw))
-        return fa.flash_attention(q, k, v, **kw)
-
     eng = ServeEngine(cfg, params, ServeConfig(**SERVE_CFG, device=dev))
     rows, prefill_ms, step_ms = {}, [], []
     instrument(eng, rows, prefill_ms, step_ms)
     zero_counts()
-    layers_mod.flash_attention = capture
+    layers_mod.flash_attention = _k7_capture(fa, calls)
     try:
         for pr in prompts:
             eng.submit(pr)
@@ -2221,6 +2313,31 @@ def serve_path(dev, tag, zero_counts):
         f"{TIE_FACTOR:g} x {gap:.4g} = {tie_tol:.4g}; every token the "
         f"forward's argmax, {limited}/{n_tf} steps margin-limited")
 
+    # the same requests through an engine computing in float32 (the same
+    # parameters, K7's float32 path), held against the float32 forward
+    f32 = Model(cfg.replace(compute_dtype="float32"))
+    eng32 = ServeEngine(f32.cfg, params, ServeConfig(**SERVE_CFG, device=dev))
+    rows32 = {}
+    instrument(eng32, rows32)
+    for pr in prompts[:TEACHER_FORCED]:
+        eng32.submit(pr)
+    served32 = eng32.run_until_drained()
+    del eng32
+    gap32 = scale32 = 0.0
+    limited32 = 0
+    for rid in range(TEACHER_FORCED):
+        g, sc, lim = teacher_forced(f32, params, prompts[rid], served32[rid],
+                                    rows32[rid], GAP_BOUND_F32, dev)
+        gap32, scale32 = max(gap32, g), max(scale32, sc)
+        limited32 += lim
+    res.update(gap32=gap32, limited32=limited32)
+    log(f"  float32 compute, teacher-forced ({TEACHER_FORCED} requests, "
+        f"{n_tf} tokens): decode logits within {gap32:.4g} of the float32 "
+        f"forward's (largest logit {scale32:.4g}; bound "
+        f"{GAP_BOUND_F32 * scale32:.4g}); every token the forward's argmax, "
+        f"{limited32}/{n_tf} steps margin-limited (tie tolerance "
+        f"{TIE_FACTOR:g} x {gap32:.4g})")
+
     # one at a time: the same tokens up to the first margin-limited step
     solo = ServeEngine(cfg, params, ServeConfig(
         **dict(SERVE_CFG, max_batch=1), device=dev))
@@ -2262,9 +2379,10 @@ def serve_path(dev, tag, zero_counts):
     with torch.no_grad():
         prof = profile_batch(
             lambda: eng._decode(toks, pos, every).float().cpu(),
-            "decode_gemma2b_B8", ROOT / "chiprun_out",
+            f"decode_{arch}_B8", ROOT / "chiprun_out",
             expect=("flash_attention",))
-        head_cast = cuda_ms(lambda: params["embed"].to(torch.bfloat16), 5)
+        head = params["embed" if cfg.tie_embeddings else "unembed"]
+        head_cast = cuda_ms(lambda: head.to(torch.bfloat16), 5)
     fa.LAUNCHES.update(saved)                 # measurements do not count
 
     def card_ms(words):
@@ -2281,7 +2399,7 @@ def serve_path(dev, tag, zero_counts):
         f"ms ({cfg.n_layers} launches), GEMMs {res['prof_gemm']:.4f} ms, "
         f"copies (the float32-to-bf16 weight casts) {res['prof_copy']:.4f} "
         f"ms, of {res['prof_busy']:.4f} ms card busy; the LM head's "
-        f"embedding cast alone {head_cast:.4f} ms; a step reads "
+        f"weight cast alone {head_cast:.4f} ms; a step reads "
         f"{n_w * 4 / 1e9:.2f} GB of float32 weights, writes and re-reads "
         f"{n_w * 2 / 1e9:.2f} GB of casts: {n_w * 8 / HBM_BYTES_PER_S * 1e3:.2f}"
         f" ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s ({n_w * 2 / HBM_BYTES_PER_S * 1e3:.2f}"
@@ -2291,18 +2409,21 @@ def serve_path(dev, tag, zero_counts):
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "gemma_2b", "--tiny", "--requests", "4"],
+         arch, "--tiny", "--requests", "4"],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     if out.returncode:
         raise AssertionError(f"python -m repro_torch.launch.serve --tiny "
                              f"exited {out.returncode}: {out.stderr[-2000:]}")
-    log(f"  python -m repro_torch.launch.serve --arch gemma_2b --tiny "
+    log(f"  python -m repro_torch.launch.serve --arch {arch} --tiny "
         f"--requests 4 on the card: {out.stdout.strip()} "
         f"({time.perf_counter() - t0:.1f} s with the interpreter's start)")
-    del eng, params
+    del eng, params, head
+    res["peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
     res["phase_s"] = time.perf_counter() - t_phase
-    log(f"  phase 3f: {res['phase_s']:.1f} s")
+    log(f"  phase {label}: {res['phase_s']:.1f} s; peak allocated "
+        f"{res['peak_gb']:.2f} GB besides the {held / 1e9:.2f} GB that "
+        f"earlier phases hold {tag}")
     return res, {k: (a, kw) for k, (_, a, kw) in calls.items()}
 
 
@@ -2334,6 +2455,44 @@ def _train_steps(built, params, opt, pipe, steps, first, fa, n_layers,
             raise AssertionError(f"step {s}: {k7} K7 launches, not 2 x "
                                  f"{n_layers}")
     return params, opt
+
+
+def _steps_report(losses, step_ms, launches, n_layers, n_params, B, S,
+                  held, tag):
+    """The gates on ``TRAIN_STEPS`` train steps (every loss finite, the
+    mean of the last 3 below the first, K7 launched 2 x layers a step, the
+    peak under the card's memory) and their metrics, logged: the median
+    step of steps 2-8, tokens/s, ``mfu``, the peak beyond ``held``."""
+    import numpy as np
+    import torch
+
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if launches != 2 * n_layers * TRAIN_STEPS:
+        raise AssertionError(f"{launches} K7 launches in {TRAIN_STEPS} steps")
+    if not peak < total:
+        raise AssertionError(f"peak {peak} bytes of {total}")
+    tokens = B * S
+    med = statistics.median(step_ms[1:])
+    res = dict(launches=launches, losses=losses, step_ms=med,
+               first_ms=step_ms[0], tokens_s=tokens / (med / 1e3),
+               mfu=6.0 * n_params * tokens / (med / 1e3 * BF16_TENSOR_FLOPS),
+               peak_gb=(peak - held) / 1e9, total_gb=total / 1e9)
+    log(f"  {TRAIN_STEPS} steps, B = {B} x {S} tokens: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; K7 launches {launches} = 2 x {n_layers} x {TRAIN_STEPS} {tag}")
+    log(f"  train step (host clock to the loss on the host): median of steps "
+        f"2-{TRAIN_STEPS} {med:.3f} ms (first {step_ms[0]:.1f} ms), "
+        f"{res['tokens_s']:,.0f} tokens/s, model flops share (mfu) "
+        f"{res['mfu']:.4f} = 6 x {n_params:.4g} x {tokens} / ({med:.3f} ms x "
+        f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s); peak allocated by the "
+        f"steps {res['peak_gb']:.2f} GB ({peak / 1e9:.2f} GB with earlier "
+        f"phases' of {res['total_gb']:.2f} GB) {tag}")
+    return res
 
 
 def _tiny_trainer_checks(dev, tag):
@@ -2429,12 +2588,11 @@ def train_path(dev, tag, zero_counts):
     same step with the stack indexed per layer instead of split once;
     (c) the Trainer and the CLI at the tiny gemma. Returns its
     measurements."""
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.models import layers as layers_mod
     from repro_torch.models import lm as lm_mod
     from repro_torch.optim import OptimConfig
@@ -2512,41 +2670,14 @@ def train_path(dev, tag, zero_counts):
         f"(besides {held / 1e9:.2f} GB that earlier phases hold for phase "
         f"4)")
     pipe = TokenPipeline(DataConfig(**TRAIN_DATA))
-    tokens = B * S
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     zero_counts()
     params, opt = _train_steps(built, params, opt, pipe, TRAIN_STEPS, 0, fa,
                                cfg.n_layers, losses, step_ms)
-    res["launches"] = fa.LAUNCHES["flash_attention"]
-    peak = torch.cuda.max_memory_allocated()
-    total = torch.cuda.get_device_properties(0).total_memory
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite losses {losses}")
-    if not np.mean(losses[-3:]) < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
-    if res["launches"] != 2 * cfg.n_layers * TRAIN_STEPS:
-        raise AssertionError(f"{res['launches']} K7 launches in "
-                             f"{TRAIN_STEPS} steps")
-    if not peak < total:
-        raise AssertionError(f"peak {peak} bytes of {total}")
-    med = statistics.median(step_ms[1:])
-    flops = 6.0 * n_params * tokens
-    res.update(losses=losses, step_ms=med, first_ms=step_ms[0],
-               tokens_s=tokens / (med / 1e3),
-               mfu=flops / (med / 1e3 * BF16_TENSOR_FLOPS),
-               peak_gb=(peak - held) / 1e9, total_gb=total / 1e9)
-    log(f"  {TRAIN_STEPS} steps, B = {B} x {S} tokens: losses "
-        + ", ".join(f"{x:.4f}" for x in losses)
-        + f"; K7 launches {res['launches']} = 2 x {cfg.n_layers} x "
-        f"{TRAIN_STEPS} {tag}")
-    log(f"  train step (host clock to the loss on the host): median of steps "
-        f"2-{TRAIN_STEPS} {med:.3f} ms (first {step_ms[0]:.1f} ms), "
-        f"{res['tokens_s']:,.0f} tokens/s, model flops share (mfu) "
-        f"{res['mfu']:.4f} = 6 x {n_params:.4g} x {tokens} / ({med:.3f} ms x "
-        f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s); peak allocated by the "
-        f"steps {res['peak_gb']:.2f} GB ({peak / 1e9:.2f} GB with earlier "
-        f"phases' of {res['total_gb']:.2f} GB) {tag}")
+    res.update(_steps_report(losses, step_ms, fa.LAUNCHES["flash_attention"],
+                             cfg.n_layers, n_params, B, S, held, tag))
+    med = res["step_ms"]
 
     # one profiled step, by kernel kind and by range
     saved = dict(fa.LAUNCHES)
@@ -2632,6 +2763,335 @@ def train_path(dev, tag, zero_counts):
     return res
 
 
+# ------------------------------------------------- the swiglu dense family
+LLAMA_TRAIN_LAYERS = 8          # llama3-8b's training depth on one card
+GRANITE_LAYERS = 4              # granite-3-8b's and granite-34b's depth
+GRANITE_SERVE = dict(max_batch=8, max_seq=256, max_new_tokens=9)
+GRANITE_PROMPT = 96             # tokens of the one granite request
+EMBED_STEPS = 30                # train_embedder's steps (its default: 300)
+
+
+def dense_train_path(dev, tag, zero_counts):
+    """Phase 3i: llama3-8b training at full width, ``LLAMA_TRAIN_LAYERS``
+    of its 32 layers (the depth is the cut: 32 layers need ~128 GB of
+    parameters, gradients and float32 moments), ``TRAIN_STEPS`` steps of
+    ``make_train_step`` on 8 x 128-token ``TokenPipeline`` batches, remat
+    "full"; then ``python -m repro_torch.launch.train --arch llama3_8b
+    --tiny`` on the card. Returns its measurements and K7's training
+    call."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3_8b").replace(n_layers=LLAMA_TRAIN_LAYERS)
+    data = dict(TRAIN_DATA, vocab_size=cfg.vocab_size)
+    B, S = data["global_batch"], data["seq_len"]
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=TRAIN_STEPS)
+    built = make_train_step(cfg, ocfg, TrainConfig(microbatches=1),
+                            device=dev)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()      # what earlier phases keep
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = built["init"](SEED)
+    torch.cuda.synchronize()
+    n_params = cfg.param_count()
+    state_gb = (torch.cuda.memory_allocated() - held) / 1e9
+    log(f"  llama3-8b at full width, {cfg.n_layers} of 32 layers (remat "
+        f"{cfg.remat!r}, ce_chunk {cfg.ce_chunk}): {n_params:,} parameters, "
+        f"init from seed {SEED} with AdamW state in "
+        f"{time.perf_counter() - t0:.1f} s, {state_gb:.2f} GB on the card "
+        f"(besides {held / 1e9:.2f} GB that earlier phases hold)")
+    pipe = TokenPipeline(DataConfig(**data))
+    calls = {}
+    losses, step_ms = [], []
+    zero_counts()
+    layers_mod.flash_attention = _k7_capture(fa, calls, {"train"})
+    try:
+        params, opt = _train_steps(built, params, opt, pipe, TRAIN_STEPS, 0,
+                                   fa, cfg.n_layers, losses, step_ms)
+    finally:
+        layers_mod.flash_attention = fa.flash_attention
+    res = _steps_report(losses, step_ms, fa.LAUNCHES["flash_attention"],
+                        cfg.n_layers, n_params, B, S, held, tag)
+    del params, opt, built
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "llama3_8b", "--tiny", "--steps", "8", "--ckpt-dir",
+             os.path.join(root, "cli")],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if out.returncode or not out.stdout.startswith(
+            "arch=llama3-8b steps=8 restarts=0 loss"):
+        raise AssertionError(f"python -m repro_torch.launch.train --arch "
+                             f"llama3_8b --tiny exited {out.returncode}: "
+                             f"{out.stdout} {out.stderr[-2000:]}")
+    log(f"  python -m repro_torch.launch.train --arch llama3_8b --tiny "
+        f"--steps 8 on the card: {out.stdout.strip()} "
+        f"({time.perf_counter() - t0:.1f} s with the interpreter's start)")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 3i: {res['phase_s']:.1f} s")
+    _, a, kw = calls["train"]
+    return res, (a, kw)
+
+
+def _record_rows(eng):
+    """The logits row of every token ``eng`` chooses, in order."""
+    import numpy as np
+
+    rows = []
+    choose = eng._select_token
+
+    def select(row, slot):
+        rows.append(np.array(row).reshape(-1))
+        return choose(row, slot)
+
+    eng._select_token = select
+    return rows
+
+
+def granite_path(dev, tag, zero_counts):
+    """Phase 3j: granite-3-8b and granite-34b at full width,
+    ``GRANITE_LAYERS`` layers each (the depth is the cut), one request of
+    ``GRANITE_PROMPT`` tokens through ``ServeEngine``: one prefill and 8
+    decode steps, K7 launched layers x 9 times, every token the causal
+    forward's argmax where its top-2 margin exceeds ``TIE_FACTOR`` x the
+    measured gap. granite-34b's 48 q heads share one kv head (G = 48).
+    Returns each model's measurements and K7 calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    from repro_torch.models import Model
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    out_res, out_calls = {}, {}
+    for arch in ("granite_3_8b", "granite_34b"):
+        t_phase = time.perf_counter()
+        cfg = get_config(arch).replace(n_layers=GRANITE_LAYERS)
+        model = Model(cfg)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init_params(SEED, device=dev)
+        prompt = np.random.default_rng(SEED + 2).integers(
+            1, cfg.vocab_size, GRANITE_PROMPT)
+        eng = ServeEngine(cfg, params, ServeConfig(**GRANITE_SERVE,
+                                                   device=dev))
+        rows = _record_rows(eng)
+        calls = {}
+        zero_counts()
+        layers_mod.flash_attention = _k7_capture(fa, calls)
+        try:
+            eng.submit(prompt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served = eng.run_until_drained()
+            wall = time.perf_counter() - t0
+        finally:
+            layers_mod.flash_attention = fa.flash_attention
+        st, k7 = eng.stats, fa.LAUNCHES["flash_attention"]
+        steps = GRANITE_SERVE["max_new_tokens"] - 1
+        if st["prefills"] != 1 or st["decode_steps"] != steps:
+            raise AssertionError(f"{arch}: {st}")
+        if k7 != cfg.n_layers * (1 + steps):
+            raise AssertionError(f"{arch}: {k7} K7 launches")
+        toks = served[0]
+        gap, scale, limited = teacher_forced(model, params, prompt, toks,
+                                             rows, GAP_BOUND, dev)
+        # the same request with float32 compute, against the float32 forward
+        f32 = Model(cfg.replace(compute_dtype="float32"))
+        eng32 = ServeEngine(f32.cfg, params, ServeConfig(**GRANITE_SERVE,
+                                                         device=dev))
+        rows32 = _record_rows(eng32)
+        eng32.submit(prompt)
+        toks32 = eng32.run_until_drained()[0]
+        gap32, _, limited32 = teacher_forced(f32, params, prompt, toks32,
+                                             rows32, GAP_BOUND_F32, dev)
+        del eng, eng32, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        G = cfg.n_heads // cfg.n_kv_heads
+        out_res[arch] = dict(launches=k7, wall_s=wall, gap=gap, scale=scale,
+                             limited=limited, gap32=gap32,
+                             limited32=limited32, peak_gb=peak, G=G,
+                             n_params=cfg.param_count(),
+                             phase_s=time.perf_counter() - t_phase)
+        out_calls[arch] = {k: (a, kw) for k, (_, a, kw) in calls.items()}
+        log(f"  {cfg.name} at full width, {cfg.n_layers} layers "
+            f"({cfg.param_count():,} parameters; {cfg.n_heads} q heads over "
+            f"{cfg.n_kv_heads} kv head(s) of {cfg.head_dim_}, G = {G}): one "
+            f"request of {GRANITE_PROMPT} tokens, 1 prefill and {steps} "
+            f"decode steps in {wall:.3f} s, K7 launches {k7} = "
+            f"{cfg.n_layers} x (1 + {steps}); decode logits within "
+            f"{gap:.4g} of the causal forward's (largest {scale:.4g}), every "
+            f"token its argmax, {limited}/{len(toks)} margin-limited; in "
+            f"float32 compute within {gap32:.4g}, {limited32}/{len(toks32)} "
+            f"margin-limited; peak "
+            f"allocated {peak:.2f} GB besides {held / 1e9:.2f} GB; "
+            f"{out_res[arch]['phase_s']:.1f} s {tag}")
+    return out_res, out_calls
+
+
+def examples_path(dev, tag, zero_counts, read_counts):
+    """Phase 3k: the four examples on the card through their ``main()``,
+    the entry point ``python -m repro_torch.examples.<name>`` calls, each
+    at its reference's defaults but train_embedder's steps (``EMBED_STEPS``
+    of its 300), checkpoints under a temporary directory; each success
+    line checked, each example's kernel launches and peak allocation
+    printed. Returns them by example."""
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.examples import (
+        distributed_search,
+        quickstart,
+        retrieval_serving,
+        train_embedder,
+    )
+
+    res = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, mod, argv, lines in (
+            ("quickstart", quickstart, [],
+             ("all queries exact", "sims bit-identical")),
+            ("distributed_search", distributed_search, [],
+             ("shards: 8 on 1 device(s) (cuda:0)",
+              "single-host linear scan for every query (exact)")),
+            ("retrieval_serving", retrieval_serving, [],
+             ("indexed 400 docs", "(exact, streamed)",
+              "generated 48 tokens for 6 requests")),
+            ("train_embedder", train_embedder,
+             ["--steps", str(EMBED_STEPS), "--ckpt-dir",
+              os.path.join(root, "embedder")],
+             (f"steps: {EMBED_STEPS}  restarts: 0", "loss: first10 ")),
+        ):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv)
+            secs = time.perf_counter() - t0
+            out = buf.getvalue()
+            missing = [ln for ln in lines if ln not in out]
+            if missing:
+                raise AssertionError(f"{name}: no {missing} in:\n{out}")
+            counts = {k: v for k, v in read_counts().items() if v}
+            gc.collect()
+            torch.cuda.empty_cache()
+            peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+            res[name] = dict(s=secs, peak_gb=peak, launches=counts,
+                             out=out.strip().splitlines())
+            log(f"  python -m repro_torch.examples.{name} {' '.join(argv)}: "
+                f"{secs:.1f} s, peak allocated {peak:.2f} GB, kernel "
+                f"launches {counts} {tag}")
+            for ln in res[name]["out"]:
+                log(f"    | {ln}")
+    for kernel in ("probe_walk", "hamming_scan_topk", "flash_attention"):
+        if not any(r["launches"].get(kernel) for r in res.values()):
+            raise AssertionError(f"no example launched {kernel}")
+    return res
+
+
+def check_kernel_api(torch, dev, index, q_words, p):
+    """Phase 2: the reference's kernel API (ROADMAP C-P4) on the card: the
+    package's ``verify_tuples_grouped`` on a padded (B, C, W) block (one K1
+    launch), ``ops.verify_tuples_grouped_op`` on the index's resident
+    codes, and ``ops.device_probe_scan_launch`` and
+    ``device_probe_scan_multi_launch`` on its CSR, each equal to the same
+    call on CPU copies (the plain versions); the package's other four
+    names are the wrappers phase 2 checks. Returns the calls checked."""
+    import numpy as np
+
+    import repro_torch.kernels as kpkg
+    from repro_torch.core import probe_device as pd
+    from repro_torch.kernels import ops, ref
+
+    vt = importlib.import_module("repro_torch.kernels.verify_tuples")
+    for name, mod in (("blockmax_scores", "blockmax_scan"),
+                      ("flash_attention", "flash_attention"),
+                      ("hamming_scan_scores", "hamming_scan"),
+                      ("verify_tuples", "verify_tuples")):
+        mod = importlib.import_module(f"repro_torch.kernels.{mod}")
+        if getattr(kpkg, name) is not getattr(mod, name):
+            raise AssertionError(f"repro_torch.kernels.{name} is not the "
+                                 f"kernel wrapper")
+    rng = np.random.default_rng(SEED)
+    W = (p + 31) // 32
+    B, C = 8, 512
+    q = torch.from_numpy(rng.integers(0, 1 << 32, (B, W), dtype=np.uint64)
+                         .astype(np.uint32).view(np.int32))
+    cand = torch.from_numpy(rng.integers(0, 1 << 32, (B, C, W),
+                                         dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32))
+    lens = torch.tensor([0, 1, 17, 100, 511, 512, 300, 2], dtype=torch.int32)
+    saved = dict(vt.LAUNCHES)
+    got = kpkg.verify_tuples_grouped(q.to(dev), cand.to(dev), lens.to(dev),
+                                     p=p)
+    if vt.LAUNCHES["verify_grouped"] != saved["verify_grouped"] + 1:
+        raise AssertionError("verify_tuples_grouped did not launch K1 once")
+    if not torch.equal(got.cpu(), ref.verify_tuples_grouped_ref(q, cand,
+                                                                lens, p)):
+        raise AssertionError("verify_tuples_grouped differs from its plain "
+                             "version")
+    db = index.db_dev
+    n = db.shape[0]
+    idx = rng.integers(0, n, (B, C)).astype(np.int32)
+    dkey = ops.device_key(db.device)
+    before = ops.LAUNCH_COUNTS_BY_DEVICE.get(dkey, 0)
+    got = ops.verify_tuples_grouped_op(q.numpy(), db, idx, lens.numpy(), p=p)
+    want = ops.verify_tuples_grouped_op(q.numpy(), db.cpu(), idx,
+                                        lens.numpy(), p=p)
+    if not np.array_equal(got, want):
+        raise AssertionError("verify_tuples_grouped_op differs on the card")
+    if ops.LAUNCH_COUNTS_BY_DEVICE.get(dkey, 0) != before + 1:
+        raise AssertionError("LAUNCH_COUNTS_BY_DEVICE missed the launch")
+    csr = index.device_csr
+    csr_cpu = {k: (v.cpu() if torch.is_tensor(v) else v)
+               for k, v in csr.items()}
+    qh = np.ascontiguousarray(q_words[:4])
+    zs = np.bitwise_count(qh.view(np.uint32)).sum(axis=1)
+    sched = pd.get_schedule(p, index.m, csr["widths"], int(zs[0]),
+                            index.probe_stream_cap)
+    got = ops.device_probe_scan_launch(qh, sched=sched, csr=csr, p=p)
+    if not np.array_equal(got, ops.device_probe_scan_launch(
+            qh, sched=sched, csr=csr_cpu, p=p)):
+        raise AssertionError("device_probe_scan_launch differs on the card")
+    stack = pd.ScheduleStack(p, index.m, tuple(csr["widths"]),
+                             index.probe_stream_cap)
+    gid = np.array([stack.row(int(z)) for z in zs], np.int32)
+    got = ops.device_probe_scan_multi_launch(qh, gid, stack=stack, csr=csr,
+                                             p=p)
+    if not np.array_equal(got, ops.device_probe_scan_multi_launch(
+            qh, gid, stack=stack, csr=csr_cpu, p=p)):
+        raise AssertionError("device_probe_scan_multi_launch differs on the "
+                             "card")
+    return (f"verify_tuples_grouped (B={B}, C={C}, W={W}), "
+            f"verify_tuples_grouped_op, device_probe_scan_launch and "
+            f"device_probe_scan_multi_launch (4 queries over n={n:,})")
+
+
 # --------------------------------------------------------------- main path
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2665,9 +3125,9 @@ def main() -> int:
     )
     from repro_torch.kernels import _build, device_probe as dp, ops
     from repro_torch.kernels import blockmax_scan as bm
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.kernels import hamming_scan as hs
-    from repro_torch.kernels import verify_tuples as vt
+    vt = importlib.import_module("repro_torch.kernels.verify_tuples")
     from repro_torch.obs.metrics import REGISTRY
 
     t_start = time.perf_counter()
@@ -2758,6 +3218,10 @@ def main() -> int:
         f"version in "
         f"float32: within tolerance (float32 2e-5, bf16 "
         f"4e-3 * max(1, |plain|)), largest differences {worst}")
+    api = check_kernel_api(torch, dev, eng.index, q_s, 64)
+    log(f"  the reference's kernel API (C-P4) on the card: {api}: equal to "
+        f"the same calls on CPU copies; the package's five names are the "
+        f"kernel wrappers")
     torch.cuda.synchronize()
     del eng, eng2, rec
     gc.collect()
@@ -2780,6 +3244,11 @@ def main() -> int:
         for mod in counted:
             for c, v in mod.LAUNCHES.items():
                 total[c] = total.get(c, 0) + v
+
+    def read_counts():
+        total = {}
+        add_counts(total)
+        return total
 
     amih_counts, scan_counts, shard_counts = {}, {}, {}
     shard_rows = []                       # phase 3d (label, ms/query)
@@ -3000,6 +3469,25 @@ def main() -> int:
     training = train_path(dev, tag, zero_counts)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 3h: token serving, llama3-8b at full width and depth {tag}")
+    llama_serving, k7_llama = serve_path(dev, tag, zero_counts,
+                                         arch="llama3_8b", label="3h")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3i: training, llama3-8b at full width, "
+        f"{LLAMA_TRAIN_LAYERS} of 32 layers {tag}")
+    llama_training, k7_llama_train = dense_train_path(dev, tag, zero_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3j: granite-3-8b and granite-34b at full width, "
+        f"{GRANITE_LAYERS} layers each {tag}")
+    granite, k7_granite = granite_path(dev, tag, zero_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3k: the four examples on the card {tag}")
+    examples = examples_path(dev, tag, zero_counts, read_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {"verify_grouped": amih_counts["verify_grouped"],
                 "probe_walk": amih_counts["probe_walk"],
                 "probe_walk_cluster": amih_counts["probe_walk_cluster"],
@@ -3011,7 +3499,9 @@ def main() -> int:
                 "blockmax_scan": scan_counts["blockmax_scan"],
                 "verify_tuples": scan_counts["verify_tuples"],
                 "flash_attention": retrieval["launches"]
-                + serving["launches"] + training["launches"]}
+                + serving["launches"] + training["launches"]
+                + llama_serving["launches"] + llama_training["launches"]
+                + sum(g["launches"] for g in granite.values())}
     log(f"  kernel launches, AMIH path: {amih_counts}; K2/K3 by wrapper "
         f"and query rows: " + ", ".join(
             f"{name} B={rows}: {n}"
@@ -3127,6 +3617,20 @@ def main() -> int:
             f"scaled_dot_product_attention {e['library_ms']:.4f} ms on the "
             f"same valid keys (differs from plain by "
             f"{e['library_diff']:.4g}), bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}); within {e['max_abs_err']:.4g} of plain "
+            f"{tag}")
+    for label, calls_, kind in (
+            ("3h llama3-8b", k7_llama, "prefill"),
+            ("3h llama3-8b", k7_llama, "decode"),
+            ("3i llama3-8b", {"train": k7_llama_train}, "train"),
+            ("3j granite-34b", k7_granite["granite_34b"], "prefill"),
+            ("3j granite-34b", k7_granite["granite_34b"], "decode")):
+        e = k7_path[label, kind] = check_flash_call(fa, *calls_[kind])
+        log(f"  flash_attention, {label} {kind} ({e['shape']}): kernel "
+            f"{e['ms']:.6f} ms, plain {e['plain_ms']:.2f} ms, "
+            f"scaled_dot_product_attention {e['library_ms']:.6f} ms on the "
+            f"same valid keys (differs from plain by "
+            f"{e['library_diff']:.4g}), bound {e['bound_ms']:.6f} ms "
             f"({e['bound_by']}); within {e['max_abs_err']:.4g} of plain "
             f"{tag}")
 
@@ -3259,6 +3763,33 @@ def main() -> int:
         f"{r['split_ms']:.3f} ms; K7 at the training operand "
         f"{e['ms']:.6f} ms (bound {e['bound_ms']:.6f}, SDPA "
         f"{e['library_ms']:.6f})")
+    r = llama_serving
+    e = k7_path["3h llama3-8b", "decode"]
+    log(f"  token serving (llama3-8b, 32 layers, B = 8): "
+        f"{r['tokens_s']:.1f} tokens/s, decode step {r['step_ms']:.3f} ms "
+        f"(median; {r['step_ms_big']:.3f} at {r['group_big']} rows), card "
+        f"busy {r['prof_busy']:.4f} ms a profiled step, peak "
+        f"{r['peak_gb']:.2f} GB, K7 launches {r['launches']}; K7 at the "
+        f"decode operand {e['ms']:.6f} ms (bound {e['bound_ms']:.6f}, SDPA "
+        f"{e['library_ms']:.6f})")
+    r = llama_training
+    e = k7_path["3i llama3-8b", "train"]
+    log(f"  training (llama3-8b, {LLAMA_TRAIN_LAYERS} layers, B = 8 x 128): "
+        f"step {r['step_ms']:.3f} ms (median of steps 2-{TRAIN_STEPS}), "
+        f"{r['tokens_s']:,.0f} tokens/s, mfu {r['mfu']:.4f}, peak "
+        f"{r['peak_gb']:.2f} GB, losses {r['losses'][0]:.4f} -> "
+        f"{r['losses'][-1]:.4f}, K7 launches {r['launches']}; K7 at the "
+        f"training operand {e['ms']:.6f} ms (bound {e['bound_ms']:.6f}, "
+        f"SDPA {e['library_ms']:.6f})")
+    for arch, r in granite.items():
+        log(f"  {arch} ({GRANITE_LAYERS} layers, G = {r['G']}): 1 prefill + "
+            f"8 decode steps {r['wall_s']:.3f} s, peak {r['peak_gb']:.2f} GB,"
+            f" K7 launches {r['launches']}")
+    e = k7_path["3j granite-34b", "decode"]
+    log(f"  K7 at granite-34b's decode operand (G = 48): {e['ms']:.6f} ms "
+        f"(bound {e['bound_ms']:.6f}, SDPA {e['library_ms']:.6f})")
+    for name, r in examples.items():
+        log(f"  example {name}: {r['s']:.1f} s, peak {r['peak_gb']:.2f} GB")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

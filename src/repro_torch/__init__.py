@@ -7,8 +7,10 @@ The port: exact top-K angular search with AMIH on the card,
 ``knn_batch`` -> ``(ids, sims, EngineStats)``, its host walk, the linear
 scan and the single table; the shard, pipeline and cluster layers and
 observability; retrieval serving, token serving and training on the
-dense LM (``serve``, ``models``, ``optim``, ``checkpoint``, ``train``,
-``launch.serve``, ``launch.train``). Its seven hand-written CUDA
+dense LMs (gemma-2b, llama3-8b, granite-3-8b, granite-34b: ``serve``,
+``models``, ``configs``, ``optim``, ``checkpoint``, ``train``,
+``launch.serve``, ``launch.train``); the reference's four examples
+(``examples``). Its seven hand-written CUDA
 kernel libraries live in ``kernels/csrc``. Entry points run on the CUDA
 device unless the caller passes ``device="cpu"``.
 """

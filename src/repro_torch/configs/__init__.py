@@ -1,4 +1,5 @@
-"""Architectures the port runs: gemma-2b, the retrieval encoder.
+"""Architectures the port runs: the dense family, gemma-2b (GeGLU, the
+retrieval encoder) and llama3-8b, granite-3-8b and granite-34b (SwiGLU).
 
 ``get_config(name)`` returns the published configuration, ``get_tiny(name)``
 the reduced same-family configuration the CPU tests use (as in the
@@ -14,7 +15,7 @@ from ..models.common import ArchConfig
 
 __all__ = ["ARCH_IDS", "get_config", "get_tiny"]
 
-ARCH_IDS: List[str] = ["gemma_2b"]
+ARCH_IDS: List[str] = ["granite_3_8b", "llama3_8b", "granite_34b", "gemma_2b"]
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
 

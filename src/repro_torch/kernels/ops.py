@@ -10,6 +10,9 @@ reference does not count, bump ``scan_topk`` (one fused K4 top-k call),
 ``scan_scores`` (one K4 score launch: ``scan_scores``, or one chunk of a
 top-k above the fused kernel's k) and ``blockmax`` (one K5 launch).
 Launch sites record ``launch.*`` spans when tracing is on.
+``LAUNCH_COUNTS`` is the reference's deprecated read-only view of the
+first four counters, ``LAUNCH_COUNTS_BY_DEVICE`` its per-device dict (every
+counted launch, keyed by ``device_key``).
 
 The linear scan (``scan_scores``, ``scan_topk``, ``merge_topk``,
 ``scan_topk_pruned``) takes int32 code tensors and runs where they lie:
@@ -28,6 +31,8 @@ gid 0 (born done), exactly as in the reference.
 from __future__ import annotations
 
 import threading
+import warnings
+from collections.abc import Mapping
 from typing import Optional
 
 import numpy as np
@@ -49,9 +54,13 @@ from .ref import popcount32
 from .verify_tuples import gather_verify_grouped, verify_tuples
 
 __all__ = [
+    "LAUNCH_COUNTS",
+    "LAUNCH_COUNTS_BY_DEVICE",
     "PendingKeys",
     "PendingWalk",
     "device_key",
+    "device_probe_scan_launch",
+    "device_probe_scan_multi_launch",
     "device_probe_scan_topk_launch",
     "device_probe_walk_batched_launch",
     "device_probe_walk_launch",
@@ -63,10 +72,42 @@ __all__ = [
     "scan_topk_pruned",
     "to_device",
     "verify_tuples_grouped_launch",
+    "verify_tuples_grouped_op",
     "verify_tuples_op",
 ]
 
 _LOCK = threading.Lock()
+
+_LAUNCH_KEYS = ("verify_grouped", "verify", "device_probe",
+                "device_probe_scan")
+
+
+class _DeprecatedLaunchCounts(Mapping):
+    """The reference's ``ops.LAUNCH_COUNTS``: a read-only view of the
+    ``launches.*`` registry counters of the reference's four ops. Direct
+    reads warn; new code reads ``REGISTRY.value("launches.<op>")``."""
+
+    def __getitem__(self, key: str) -> int:
+        warnings.warn(
+            "ops.LAUNCH_COUNTS is deprecated; read "
+            "repro_torch.obs.metrics.REGISTRY.value('launches.<op>') "
+            "instead", DeprecationWarning, stacklevel=2,
+        )
+        if key not in _LAUNCH_KEYS:
+            raise KeyError(key)
+        return _REG.value("launches." + key)
+
+    def __iter__(self):
+        return iter(_LAUNCH_KEYS)
+
+    def __len__(self) -> int:
+        return len(_LAUNCH_KEYS)
+
+
+LAUNCH_COUNTS = _DeprecatedLaunchCounts()
+
+# device key -> launches counted there (mirrors launches.device.<dkey>)
+LAUNCH_COUNTS_BY_DEVICE: dict = {}
 
 
 def _bump_launch(op: str, dkey: str) -> None:
@@ -74,6 +115,8 @@ def _bump_launch(op: str, dkey: str) -> None:
     per-device split ``launches.device.<dkey>``."""
     _REG.counter("launches." + op).add(1)
     _REG.counter("launches.device." + dkey).add(1)
+    with _LOCK:
+        LAUNCH_COUNTS_BY_DEVICE[dkey] = LAUNCH_COUNTS_BY_DEVICE.get(dkey, 0) + 1
 
 
 def device_key(device) -> str:
@@ -192,6 +235,18 @@ def verify_tuples_grouped_launch(
             to_device(lensp, device), p=p,
         )
     return PendingKeys(keys, B, C, dkey)
+
+
+def verify_tuples_grouped_op(q_words, db_words, cand_idx, lengths, *, p: int,
+                             device=None) -> np.ndarray:
+    """The blocking grouped verify: a host (B, C) int32 array of packed
+    bucket keys ``r10 * (p + 1) + r01``, -1 in every padded slot
+    (``verify_tuples_grouped_launch(...).get()``). ``device`` defaults to
+    where the resident codes ``db_words`` lie."""
+    device = db_words.device if device is None else device
+    return verify_tuples_grouped_launch(
+        q_words, db_words, cand_idx, lengths, p=p, device=device,
+    ).get()
 
 
 # ----------------------------------------------------------- probing walks
@@ -397,6 +452,49 @@ def device_probe_walk_batched_launch(
         tr.record("launch.device_probe.dispatch", t0, _obs.now_us(),
                   cat="kernel", device=dkey, B=B)
     return PendingWalk(out, B, cap, pool_key, buf)
+
+
+def _scan_map_launch(q_words, gid, inv_pos, *, csr, p: int, chunk: int,
+                     device):
+    """One exhaustive map launch (K3's map kernel): a host (B, n_pad)
+    int32 position map."""
+    qh = np.ascontiguousarray(np.asarray(q_words))
+    B = qh.shape[0]
+    Bp = pad_bucket(B, minimum=1)
+    n_pad = csr["n_pad"]
+    chunk = min(pad_bucket(chunk, minimum=8), n_pad)
+    q_t = to_device(_pad_rows(qh, Bp), device)
+    g_t = to_device(_pad_rows(np.asarray(gid, dtype=np.int32), Bp), device)
+    dkey = device_key(device)
+    _bump_launch("device_probe_scan", dkey)
+    with _obs.current().span("launch.device_probe_scan", cat="kernel",
+                             device=dkey, B=B):
+        pm = device_probe.device_probe_scan_multi(
+            q_t, g_t, csr["db_pad"], inv_pos, csr["n"], p=p, chunk=chunk)
+        return pm[:B].cpu().numpy()
+
+
+def device_probe_scan_launch(q_words, *, sched, csr, p: int, device=None,
+                             chunk: int = 2048):
+    """The exhaustive fallback for one z-group: the exact walk position
+    of every stored code for each query, a host (B, n_pad) int32 map
+    (POS_INF where a code has none). ``device`` defaults to where the
+    index's codes lie."""
+    device = csr["db_pad"].device if device is None else device
+    inv = sched.device_arrays(device)["inv_pos"]
+    gid = np.zeros(np.asarray(q_words).shape[0], dtype=np.int32)
+    return _scan_map_launch(q_words, gid, inv[None, :], csr=csr, p=p,
+                            chunk=chunk, device=device)
+
+
+def device_probe_scan_multi_launch(q_words, gid, *, stack, csr, p: int,
+                                   device=None, chunk: int = 2048):
+    """``device_probe_scan_launch`` across every z-group of a batch, with a
+    per-query ``gid`` row into the stack's inverse-position tables."""
+    device = csr["db_pad"].device if device is None else device
+    inv = stack.device_arrays(device)["inv_pos"]
+    return _scan_map_launch(q_words, gid, inv, csr=csr, p=p, chunk=chunk,
+                            device=device)
 
 
 def device_probe_scan_topk_launch(q_words, gid, t_stop, k: int, *, inv_pos,

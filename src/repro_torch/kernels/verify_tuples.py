@@ -11,6 +11,10 @@ launches the CUDA kernel (``csrc/verify_grouped.cu``); on a CPU tensor it
 runs ``gather_verify_grouped_plain``, the same function in plain PyTorch.
 The keys are exact integers, so kernel and plain version agree exactly.
 
+``verify_tuples_grouped`` is the reference's entry of the same name, on a
+padded (B, C, W) candidate block: a view of the block as (B * C, W) codes
+and the identity index matrix, through the same kernel.
+
 ``verify_tuples`` is the port of the reference's Pallas kernel of the same
 name (``_verify_kernel``): one (W,) query against (N, W) codes -> the
 exact tuples (r10, r01), each (N,) int32, from ``csrc/verify_tuples.cu``
@@ -25,7 +29,7 @@ from . import _build
 from .ref import verify_tuples_grouped_ref, verify_tuples_ref
 
 __all__ = ["LAUNCHES", "gather_verify_grouped", "gather_verify_grouped_plain",
-           "verify_tuples", "verify_tuples_plain"]
+           "verify_tuples", "verify_tuples_grouped", "verify_tuples_plain"]
 
 # kernel launches so far (bumped where the kernel is launched, nowhere else)
 LAUNCHES = {"verify_grouped": 0, "verify_tuples": 0}
@@ -74,6 +78,19 @@ def gather_verify_grouped(q_words, db_words, cand_idx, lengths, *, p: int):
             lengths, out, p, _build.stream_of(q_words.device))
     LAUNCHES["verify_grouped"] += 1
     return out
+
+
+def verify_tuples_grouped(q_words, cand_words, lengths, *, p: int):
+    """The reference's grouped verify on a padded candidate block:
+    (B, W), (B, C, W), (B,) int32 -> (B, C) int32 packed keys, -1 past
+    each query's length. One K1 launch on a CUDA tensor."""
+    B, C, W = cand_words.shape
+    if B * C >= 1 << 31:
+        raise ValueError(f"B * C = {B * C} rows exceed the int32 index")
+    idx = torch.arange(B * C, dtype=torch.int32,
+                       device=cand_words.device).reshape(B, C)
+    return gather_verify_grouped(q_words, cand_words.reshape(B * C, W), idx,
+                                 lengths, p=p)
 
 
 def verify_tuples_plain(q_words, cand_words):

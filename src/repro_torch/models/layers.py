@@ -16,6 +16,8 @@ reference's does. No caller of the port shifts the query block (the reference's
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -73,12 +75,16 @@ def apply_rope(x, cos, sin):
 
 # ------------------------------------------------------------------- MLPs
 def mlp(x, params, activation: str):
-    """GeGLU feed-forward. Weights: wi, wi_gate, wo."""
-    if activation != "geglu":
+    """Gated feed-forward, SwiGLU or GeGLU. Weights: wi, wi_gate, wo. The
+    ungated ``"gelu"`` MLP (whisper) is ROADMAP A11."""
+    if activation == "swiglu":
+        act = F.silu
+    elif activation == "geglu":
+        act = functools.partial(F.gelu, approximate="tanh")
+    else:
         raise not_ported(f"the {activation!r} MLP")
     cdt = x.dtype
-    h = F.gelu(x @ params["wi_gate"].to(cdt), approximate="tanh") \
-        * (x @ params["wi"].to(cdt))
+    h = act(x @ params["wi_gate"].to(cdt)) * (x @ params["wi"].to(cdt))
     return h @ params["wo"].to(cdt)
 
 

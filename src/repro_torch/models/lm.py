@@ -100,7 +100,7 @@ def _attn_t(cfg) -> Dict[str, PSpec]:
 
 
 def _mlp_t(cfg, d_ff: int) -> Dict[str, PSpec]:
-    if cfg.activation != "geglu":
+    if cfg.activation not in ("swiglu", "geglu"):
         raise not_ported(f"the {cfg.activation!r} MLP")
     d = cfg.d_model
     return {

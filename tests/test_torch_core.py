@@ -367,7 +367,7 @@ def test_port_imports_neither_jax_nor_reference():
     subpackages = {f.parent.name for f in files}
     assert {"core", "kernels", "shard", "pipeline", "serve", "cluster",
             "obs", "data", "models", "launch", "optim", "checkpoint",
-            "train"} <= subpackages
+            "train", "configs", "examples"} <= subpackages
     src = ROOT / "src" / "repro_torch"
     for rel in ("shard/engines.py", "pipeline/shardpool.py",
                 "cluster/transport.py", "cluster/worker.py",
@@ -377,7 +377,12 @@ def test_port_imports_neither_jax_nor_reference():
                 "serve/engine.py", "launch/serve.py", "tree.py",
                 "optim/adamw.py", "optim/compression.py",
                 "checkpoint/checkpointer.py", "train/step.py",
-                "train/loop.py", "train/watchdog.py", "launch/train.py"):
+                "train/loop.py", "train/watchdog.py", "launch/train.py",
+                "configs/llama3_8b.py", "configs/granite_3_8b.py",
+                "configs/granite_34b.py", "examples/quickstart.py",
+                "examples/distributed_search.py",
+                "examples/retrieval_serving.py",
+                "examples/train_embedder.py"):
         assert src / rel in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

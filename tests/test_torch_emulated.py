@@ -10,6 +10,7 @@ skip where no ``g++`` is installed.
 """
 
 import ctypes
+import importlib
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,10 +27,11 @@ from repro_torch.data.synthetic import (
 from repro_torch.kernels import _build
 from repro_torch.kernels import blockmax_scan as bm
 from repro_torch.kernels import device_probe as dp
-from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hamming_scan as hs
 from repro_torch.kernels import ops
-from repro_torch.kernels import verify_tuples as vt
+
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+vt = importlib.import_module("repro_torch.kernels.verify_tuples")
 
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 

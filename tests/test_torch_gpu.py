@@ -6,6 +6,8 @@ that has only PyTorch and the CUDA toolkit:
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -18,12 +20,13 @@ from repro_torch.data.synthetic import (
 )
 from repro_torch.kernels import blockmax_scan as bm
 from repro_torch.kernels import device_probe as dp
-from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hamming_scan as hs
 from repro_torch.kernels import ops
-from repro_torch.kernels import verify_tuples as vt
 from repro_torch.models.api import Model
 from repro_torch.serve.retrieval import RetrievalConfig, RetrievalService
+
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+vt = importlib.import_module("repro_torch.kernels.verify_tuples")
 
 pytestmark = pytest.mark.gpu
 

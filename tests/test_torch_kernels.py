@@ -6,6 +6,9 @@ and the plain probing walks and scans against the reference's
 output by output, with equality. The CUDA kernels themselves are held
 against these plain versions in ``tests/test_torch_gpu.py``."""
 
+import importlib
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,14 +16,22 @@ import pytest
 import torch
 from _hypothesis_compat import given, settings, st
 
+import repro.kernels as r_kernels
+import repro_torch.kernels as t_kernels
 from repro.core import pack_bits
 from repro.core import probe_device as r_pd
 from repro.core.amih import AMIHIndex as RIndex
 from repro.kernels import device_probe as r_dp
+from repro.kernels import ops as r_ops
 from repro.kernels.verify_tuples import verify_tuples_grouped as r_grouped
+from repro_torch.core import probe_device as t_pd
+from repro_torch.core.amih import AMIHIndex as TIndex
 from repro_torch.kernels import device_probe as t_dp
+from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
-from repro_torch.kernels import verify_tuples as t_vt
+from repro_torch.obs.metrics import REGISTRY as T_REG
+
+t_vt = importlib.import_module("repro_torch.kernels.verify_tuples")
 
 KMAX = r_pd.KMAX
 WALK_OUT = ("posmap", "probes", "retrieved", "done", "cursor", "iters")
@@ -305,3 +316,141 @@ def test_touched_list_extraction_matches_reference_extract(p, seed, k, cut):
                                     int(got[5]) * kw["cap"])
     _eq_rows(ids, pos, ref)
     assert bool((pm == t_dp.POS_INF).all())
+
+
+# ------------------------------------------- the reference's kernel API
+SCORE_ATOL = 1.2e-7     # one ulp at 1.0 (ROADMAP C-R4, tests/test_torch_scan.py)
+ATTN_TOL = 2e-5         # tests/test_torch_models.py
+
+
+def test_kernels_export_equals_reference():
+    """C-P4: the package binds the reference's names; the five kernels are
+    functions, ``ops`` and ``ref`` modules."""
+    assert t_kernels.__all__ == r_kernels.__all__
+    for name in t_kernels.__all__:
+        obj = getattr(t_kernels, name)
+        if name in ("ops", "ref"):
+            assert type(obj).__name__ == "module", name
+        else:
+            assert callable(obj) and obj.__name__ == name, name
+    # the modules stay reachable by their dotted names
+    assert t_vt.verify_tuples is t_kernels.verify_tuples
+
+
+def _words(rng, *shape):
+    return rng.integers(0, 1 << 32, size=shape,
+                        dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("name", [n for n in r_kernels.__all__
+                                  if n not in ("ops", "ref")])
+def test_package_kernel_matches_reference(name):
+    """Each of the package's five kernels (its plain version on the CPU)
+    against the reference's Pallas kernel in interpret mode, same inputs."""
+    rng = np.random.default_rng(len(name))
+    t_fn, r_fn = getattr(t_kernels, name), getattr(r_kernels, name)
+    W = 2
+    if name in ("hamming_scan_scores", "blockmax_scores"):
+        q, db = _words(rng, 8, W), _words(rng, 512, W)
+        db[:3] = 0                                # zero codes score 0.0
+        z = np.bitwise_count(q).sum(axis=1).astype(np.int32)
+        kw = dict(blk_n=128, blk_q=8) if name == "hamming_scan_scores" \
+            else dict(blk_n=128)
+        want = r_fn(jnp.asarray(q), jnp.asarray(z), jnp.asarray(db),
+                    interpret=True, **kw)
+        got = t_fn(_t(q), _t(z), _t(db)) if name == "hamming_scan_scores" \
+            else t_fn(_t(q), _t(z), _t(db), **kw)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=SCORE_ATOL, rtol=0)
+    elif name == "flash_attention":
+        q = rng.normal(size=(2, 64, 8, 32)).astype(np.float32)
+        k = rng.normal(size=(2, 64, 2, 32)).astype(np.float32)
+        v = rng.normal(size=(2, 64, 2, 32)).astype(np.float32)
+        want = r_fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=True, q_blk=32, kv_blk=32, interpret=True)
+        got = t_fn(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=ATTN_TOL, rtol=ATTN_TOL)
+    elif name == "verify_tuples":
+        q, cand = _words(rng, W), _words(rng, 256, W)
+        want = r_fn(jnp.asarray(q), jnp.asarray(cand), blk_n=128,
+                    interpret=True)
+        for g, w, what in zip(t_fn(_t(q), _t(cand)), want, ("r10", "r01")):
+            _eq(g, w, what)
+    else:                                         # verify_tuples_grouped
+        p, B, C = 64, 3, 256
+        q, cand = _words(rng, B, W), _words(rng, B, C, W)
+        lens = np.array([0, 17, C], np.int32)
+        want = r_fn(jnp.asarray(q), jnp.asarray(cand), jnp.asarray(lens),
+                    p=p, blk_c=128, interpret=True)
+        _eq(t_fn(_t(q), _t(cand), _t(lens), p=p), want, "keys")
+
+
+def test_ops_hold_the_reference_names_but_on_tpu():
+    """Every name of the reference's ``ops.__all__`` is in the port's but
+    ``on_tpu`` (the TPU backend test; ROADMAP C-P4 says why)."""
+    assert set(r_ops.__all__) - set(t_ops.__all__) == {"on_tpu"}
+    assert not hasattr(t_ops, "on_tpu")
+    assert list(t_ops.LAUNCH_COUNTS) == list(r_ops.LAUNCH_COUNTS)
+
+
+def test_grouped_verify_op_and_launch_counts_match_reference():
+    p, B, C, n = 64, 5, 40, 300
+    rng = np.random.default_rng(21)
+    q, db = _words(rng, B, 2), _words(rng, n, 2)
+    idx = rng.integers(0, n, size=(B, C)).astype(np.int32)
+    lens = np.array([0, 1, 13, 39, 40], np.int32)
+    want = r_ops.verify_tuples_grouped_op(q, jnp.asarray(db), idx, lens, p=p,
+                                          use_pallas=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        before = t_ops.LAUNCH_COUNTS["verify_grouped"]
+    on_cpu = t_ops.LAUNCH_COUNTS_BY_DEVICE.get("cpu", 0)
+    got = t_ops.verify_tuples_grouped_op(q, _t(db), idx, lens, p=p)
+    assert isinstance(got, np.ndarray)
+    _eq(got, want, "keys")
+    with pytest.warns(DeprecationWarning, match="LAUNCH_COUNTS"):
+        assert t_ops.LAUNCH_COUNTS["verify_grouped"] == before + 1
+    assert T_REG.value("launches.verify_grouped") == before + 1
+    assert t_ops.LAUNCH_COUNTS_BY_DEVICE["cpu"] == on_cpu + 1
+    with pytest.raises(KeyError):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            t_ops.LAUNCH_COUNTS["scan_topk"]
+
+
+def test_scan_launches_match_reference():
+    """``device_probe_scan_launch`` (one z-group) and
+    ``device_probe_scan_multi_launch`` (a batch across z-groups): the
+    port's host maps against the reference's, the same index built by
+    each package."""
+    p, n, B = 64, 700, 6
+    index, r_csr, q = _walk_case(p, n, B, seed=17, m=4)
+    port = TIndex.build(np.asarray(index.db_words), p, m=4, device="cpu",
+                        probe_backend="device")
+    t_csr = port.device_csr
+    z = int(np.bitwise_count(q[0]).sum())
+    r_sched = r_pd.get_schedule(p, 4, r_csr["widths"], z,
+                                index.probe_stream_cap)
+    t_sched = t_pd.get_schedule(p, 4, t_csr["widths"], z,
+                                port.probe_stream_cap)
+    want = r_ops.device_probe_scan_launch(q, sched=r_sched, csr=r_csr, p=p,
+                                          use_pallas=False, chunk=256)
+    got = t_ops.device_probe_scan_launch(q, sched=t_sched, csr=t_csr, p=p,
+                                         chunk=256)
+    assert isinstance(got, np.ndarray)
+    _eq(got, want, "scan map")
+    # fresh stacks (the process-wide ones grow in the order tests ran)
+    r_stack = r_pd.ScheduleStack(p, 4, tuple(r_csr["widths"]),
+                                 index.probe_stream_cap)
+    t_stack = t_pd.ScheduleStack(p, 4, tuple(t_csr["widths"]),
+                                 port.probe_stream_cap)
+    zs = np.bitwise_count(q).sum(axis=1)
+    gid = np.array([r_stack.row(int(v)) for v in zs], np.int32)
+    assert [t_stack.row(int(v)) for v in zs] == gid.tolist()
+    want = r_ops.device_probe_scan_multi_launch(
+        q, gid, stack=r_stack, csr=r_csr, p=p, use_pallas=False, chunk=256)
+    got = t_ops.device_probe_scan_multi_launch(q, gid, stack=t_stack,
+                                               csr=t_csr, p=p, chunk=256)
+    _eq(got, want, "scan_multi map")

@@ -14,6 +14,7 @@ first step whose reference top-2 logit margin is below 10x the logit
 tolerance (a tie, named by the test, not a fault).
 """
 
+import importlib
 import os
 import subprocess
 import sys
@@ -41,11 +42,12 @@ import repro_torch.serve as t_serve
 from repro_torch.configs import get_tiny
 from repro_torch.convert import cache_from_reference, params_from_reference
 from repro_torch.data import DataConfig, TokenPipeline
-from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.models import Model
 from repro_torch.models import layers as t_layers
 from repro_torch.models import lm as t_lm
 from repro_torch.serve import ServeConfig, ServeEngine
+
+t_fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
