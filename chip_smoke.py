@@ -202,9 +202,40 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       ~100M model, 30 of its 300 steps, checkpoints under a temporary
       directory), each success line checked, each example's launches and
       peak allocation printed; K2, the fused K4 and K7 must launch.
+   l. whisper-tiny's encoder-decoder at full width and depth (4 encoder
+      and 4 decoder layers, d_model 384, 6 heads of 64, d_ff 1536, vocab
+      51,865, 1,500 frames), bf16 compute, float32 parameters drawn with
+      numpy from seed 0 in the reference's tree and init rule and carried
+      across with ``params_from_reference`` (``whisper_path``): a prefill
+      of 8 prompts of 16 tokens over seeded frames (8, 1500, 384), then 32
+      greedy decode steps, each token the teacher-forced forward's argmax
+      where its top-2 margin exceeds ``TIE_FACTOR`` x the measured gap,
+      in bf16 and again in float32 compute (gaps within ``GAP_BOUND`` and
+      ``GAP_BOUND_F32`` of the largest logit); K7 launched (4 + 2 x 4) +
+      32 x 2 x 4 times, on five kinds of operand: the encoder's 1,500-key
+      non-causal self-attention, the decoder's causal self-attention, its
+      cross-attention (16 queries against 1,500 keys), the decode step's
+      self-attention and its cross-attention (``valid_len`` 1,500); then 8
+      ``make_train_step`` steps of 8 x 128 tokens with their frames
+      (remat "full" on the decoder: K7 4 + 2 x 2 x 4 times a step), losses
+      finite and falling, ms a step, tokens/s and the peak.
+   m. mamba2-1.3b at full width and depth (48 layers, d_model 2048, 64
+      SSM heads of 64, state 128, vocab 50,280; 1.45 B float32 parameters
+      from seed 0, bf16 compute; no attention, so no kernel): token
+      serving exactly as f (16 requests in 8 slots, ``max_seq`` 256, the
+      teacher-forced, float32 and one-at-a-time checks, one profiled
+      decode step, the tiny CLI), which holds the engine's masked restore
+      of the SSM state; then ``python -m repro_torch.launch.train --arch
+      mamba2_1_3b --steps 8`` through its ``main()`` (8 x 128 tokens,
+      remat "full", its checkpoints every 2 steps under a temporary
+      directory, their 17.4 GB of arrays each counted but not written:
+      see ``mamba_train_path``): the summary line, losses finite and
+      falling, ms a step from the trainer's history, tokens/s, ``mfu`` and
+      the peak.
    Every kernel launch counter is set to 0 just before each path (a, d,
    b) at each p, and before c, f, g's 8 steps, h, i's steps, each model
-   of j and each example of k, and read just after it; K2 launches count by
+   of j, each example of k, l's generation and its 8 steps, and m's
+   serving and training, and read just after it; K2 launches count by
    form (grid, cluster), K3 by kernel (fused, map), and on path a also by
    wrapper and query rows;
 4. each kernel against its plain version again, on operands captured from
@@ -220,8 +251,11 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    K1 at the host walk's largest call and at B = 1, C = 8 (the card's
    per-launch floor for it); K7 at c's encoder call, at f's and h's
    decode call with the most valid keys and their longest prefill, at i's
-   training call (q (8, 128, 32, 128) causal) and at j's granite-34b
-   prefill and decode calls (G = 48), each
+   training call (q (8, 128, 32, 128) causal), at j's granite-34b
+   prefill and decode calls (G = 48) and at l's encoder self-attention
+   (q = k = (8, 1500, 6, 64)), cross-attention (q (8, 16, 6, 64) against
+   (8, 1500, 6, 64)) and cross-attention decode (q (8, 1, 6, 64),
+   ``valid_len`` 1,500), each
    also beside
    ``scaled_dot_product_attention`` on the same tensors and valid keys
    (its ``library_ms``, c's call in the ``kernels`` record; the port never
@@ -2156,10 +2190,11 @@ def _k7_capture(fa, calls, kinds=None):
 
 
 def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f"):
-    """Phase 3f (gemma-2b) or 3h (llama3-8b): token serving at the
-    architecture's full width and depth through ``ServeEngine`` (see the
-    module docstring). Returns its measurements and K7's main-path decode
-    and prefill calls."""
+    """Phase 3f (gemma-2b), 3h (llama3-8b) or 3m (mamba2-1.3b): token
+    serving at the architecture's full width and depth through
+    ``ServeEngine`` (see the module docstring). Returns its measurements
+    and K7's main-path decode and prefill calls (none for the SSM, which
+    runs no attention)."""
     import numpy as np
     import torch
 
@@ -2248,10 +2283,11 @@ def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f"):
         layers_mod.flash_attention = fa.flash_attention
     st = eng.stats
     k7 = fa.LAUNCHES["flash_attention"]
-    if k7 != cfg.n_layers * (st["prefills"] + st["decode_steps"]):
+    k7_layers = 0 if cfg.family == "ssm" else cfg.n_layers
+    if k7 != k7_layers * (st["prefills"] + st["decode_steps"]):
         raise AssertionError(f"{k7} K7 launches for {st['prefills']} "
                              f"prefills and {st['decode_steps']} decode "
-                             f"steps of {cfg.n_layers} layers")
+                             f"steps of {k7_layers} attention layers")
     if sorted(results) != list(range(SERVE_REQUESTS)) or any(
             len(t) != SERVE_CFG["max_new_tokens"] for t in results.values()):
         raise AssertionError("the engine did not serve every request in full")
@@ -2268,8 +2304,8 @@ def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f"):
         f"{st['tokens_out']} tokens, {res['tokens_s']:.1f} tokens/s; "
         f"{st['prefills']} prefills, {st['decode_steps']} decode steps "
         f"(group sizes {dict(sorted((g, groups.count(g)) for g in set(groups)))}); "
-        f"K7 launches {k7} = {cfg.n_layers} layers x ({st['prefills']} + "
-        f"{st['decode_steps']}) {tag}")
+        f"K7 launches {k7} = {k7_layers} attention layers x "
+        f"({st['prefills']} + {st['decode_steps']}) {tag}")
     log("  prefill ms by prompt length (host clock, B = 1, to the chosen "
         "token): " + ", ".join(f"{n}: {ms:.2f}" for n, ms in res["prefill_ms"])
         + f" {tag}")
@@ -2380,7 +2416,7 @@ def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f"):
         prof = profile_batch(
             lambda: eng._decode(toks, pos, every).float().cpu(),
             f"decode_{arch}_B8", ROOT / "chiprun_out",
-            expect=("flash_attention",))
+            expect=("flash_attention",) if k7_layers else ())
         head = params["embed" if cfg.tie_embeddings else "unembed"]
         head_cast = cuda_ms(lambda: head.to(torch.bfloat16), 5)
     fa.LAUNCHES.update(saved)                 # measurements do not count
@@ -2396,7 +2432,7 @@ def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f"):
                prof_busy=sum(dt for dt, _, _ in prof))
     n_w = cfg.param_count()
     log(f"  one decode step at B = {B}, pos {pos}: K7 {res['prof_k7']:.4f} "
-        f"ms ({cfg.n_layers} launches), GEMMs {res['prof_gemm']:.4f} ms, "
+        f"ms ({k7_layers} launches), GEMMs {res['prof_gemm']:.4f} ms, "
         f"copies (the float32-to-bf16 weight casts) {res['prof_copy']:.4f} "
         f"ms, of {res['prof_busy']:.4f} ms card busy; the LM head's "
         f"weight cast alone {head_cast:.4f} ms; a step reads "
@@ -3014,6 +3050,369 @@ def examples_path(dev, tag, zero_counts, read_counts):
     return res
 
 
+# --------------------------------------------- whisper-tiny and mamba2-1.3b
+WHISPER_B = 8                   # prompts served and sequences trained
+WHISPER_PROMPT = 16             # tokens of each prompt
+WHISPER_STEPS = 32              # greedy decode steps after the prefill
+WHISPER_TRAIN_S = 128           # tokens of each training sequence
+MAMBA_TRAIN_STEPS = 8           # steps of the training CLI
+
+
+def reference_layout_params(cfg, seed):
+    """Random parameters in the reference's tree and init rule (normal,
+    std 0.02 and 0.02 / sqrt(2 L) for output projections, norms' scales 1
+    and biases 0), as numpy arrays from ``seed``: what a reference
+    checkpoint hands ``params_from_reference``."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves_with_path
+
+    rng = np.random.default_rng(seed)
+    tree = {}
+    for path, spec in leaves_with_path(lm.model_template(cfg), lm._is_pspec):
+        if spec.init in ("zeros", "ones"):
+            a = (np.ones if spec.init == "ones" else np.zeros)(spec.shape,
+                                                               np.float32)
+        else:
+            std = 0.02 / math.sqrt(2 * cfg.n_layers) if spec.init == "out" \
+                else 0.02
+            a = rng.standard_normal(spec.shape, dtype=np.float32) * \
+                np.float32(std)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a
+    return tree
+
+
+def _whisper_capture(fa, calls, counts, enc_seq):
+    """A stand-in for ``models.layers.flash_attention`` that keeps copies
+    of the operands of the first K7 call of each kind on whisper's path
+    (the encoder's self-attention, the decoder's causal self-attention
+    and its cross-attention, the decode step's self- and
+    cross-attention) and counts the calls by kind, then calls K7 as the
+    layer would."""
+
+    def capture(q, k, v, **kw):
+        if kw.get("valid_len") is None:
+            kind = "prefill" if kw.get("causal") else (
+                "encoder" if q.shape[1] == k.shape[1] else "cross")
+        else:
+            kind = "cross_decode" if k.shape[1] == enc_seq else "decode"
+        if kind not in calls:
+            calls[kind] = (tuple(t.detach().clone() for t in (q, k, v)),
+                           dict(kw))
+        counts[kind] = counts.get(kind, 0) + 1
+        return fa.flash_attention(q, k, v, **kw)
+
+    return capture
+
+
+def whisper_generate(model, params, batch, steps, dev):
+    """Prefill ``batch`` and take ``steps`` greedy decode steps from the
+    prefill's cache pasted into a zero cache of prompt + steps slots.
+    Returns (tokens (B, steps + 1), the logits row of each (steps + 1, B,
+    V), prefill ms, median decode-step ms), host clock to the chosen
+    tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.encdec import EncDecCache
+
+    S = batch["tokens"].shape[1]
+    B = batch["tokens"].shape[0]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, pre = model.prefill(params, batch, device=dev)
+        rows = [logits.float().cpu().numpy()]
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        full = model.init_cache(B, S + steps, device=dev)
+        for f, p in zip(full.self_kv, pre.self_kv):
+            f[:, :, :S] = p
+        cache = EncDecCache(self_kv=full.self_kv, cross_kv=pre.cross_kv)
+        toks = [rows[0].argmax(-1)]
+        step_ms = []
+        for j in range(steps):
+            t0 = time.perf_counter()
+            logits, _ = model.decode_step(params, cache, toks[-1][:, None],
+                                          S + j, device=dev)
+            rows.append(logits.float().cpu().numpy())
+            toks.append(rows[-1].argmax(-1))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    return (np.stack(toks, 1).astype(np.int32), np.stack(rows), prefill_ms,
+            statistics.median(step_ms))
+
+
+def whisper_teacher_forced(model, params, batch, toks, rows, bound, dev):
+    """The greedy tokens ``toks`` (B, n) against the teacher-forced
+    forward over each prompt and its tokens: the decode logits within
+    ``bound`` x the largest forward logit, each token the forward's
+    argmax wherever its top-2 margin exceeds ``TIE_FACTOR`` x the
+    measured gap. Returns (gap, scale, margin-limited tokens)."""
+    import numpy as np
+    import torch
+
+    S = batch["tokens"].shape[1]
+    seq = np.concatenate([batch["tokens"], toks[:, :-1]], axis=1)
+    with torch.no_grad():
+        logits, _ = model.forward(params, dict(batch, tokens=seq),
+                                  device=dev)
+        f = logits[:, S - 1:].cpu().numpy()          # (B, n, V)
+        del logits
+    d = np.swapaxes(rows, 0, 1)                       # (B, n, V)
+    gap = float(np.abs(d - f).max())
+    scale = float(np.abs(f).max())
+    if not gap <= bound * scale:
+        raise AssertionError(f"{model.cfg.name} ({model.cfg.compute_dtype}): "
+                             f"decode logits differ from the teacher-forced "
+                             f"forward's by {gap} (largest logit {scale})")
+    limited = 0
+    for b in range(toks.shape[0]):
+        for j in range(toks.shape[1]):
+            if top2_margin(f[b, j]) <= TIE_FACTOR * gap:
+                limited += 1
+            elif toks[b, j] != int(np.argmax(f[b, j])):
+                raise AssertionError(
+                    f"{model.cfg.name} row {b} token {j}: {toks[b, j]}, the "
+                    f"forward's argmax {int(np.argmax(f[b, j]))}")
+    return gap, scale, limited
+
+
+def whisper_path(dev, tag, zero_counts):
+    """Phase 3l: whisper-tiny at full width and depth (4 encoder and 4
+    decoder layers, d_model 384, 6 heads of 64, 1,500 frames), bf16
+    compute, its parameters drawn in the reference's layout with numpy and
+    carried across with ``params_from_reference``. (a) A prefill of
+    ``WHISPER_B`` prompts of ``WHISPER_PROMPT`` tokens over seeded frames
+    and ``WHISPER_STEPS`` greedy decode steps; each token the
+    teacher-forced forward's argmax where its margin allows, in bf16 and
+    again in float32 compute. (b) 8 ``make_train_step`` steps of
+    ``WHISPER_B`` x ``WHISPER_TRAIN_S`` tokens with their frames: losses
+    finite and falling. K7 launches counted on (a) and (b). Returns the
+    measurements and K7's operands by kind."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference
+    from repro_torch.data import DataConfig, TokenPipeline
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    from repro_torch.models import Model
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.optim import OptimConfig, init_state
+    from repro_torch.train import TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper_tiny")
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tree = reference_layout_params(cfg, SEED)
+    params = params_from_reference(tree, device=dev)
+    rng = np.random.default_rng(SEED + 3)
+    B, S, n = WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS
+    batch = {"tokens": rng.integers(1, cfg.vocab_size, (B, S)).astype(
+                 np.int32),
+             "enc_frames": rng.standard_normal(
+                 (B, cfg.encoder_seq, cfg.d_model), dtype=np.float32)}
+    log(f"  {cfg.name} at full width and depth ({cfg.n_encoder_layers} + "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"of {cfg.head_dim_}, {cfg.encoder_seq} frames; "
+        f"{cfg.param_count():,} float32 parameters drawn from seed {SEED} in "
+        f"the reference's layout, bf16 compute)")
+    calls, by_kind = {}, {}
+    capture = _whisper_capture(fa, calls, by_kind, cfg.encoder_seq)
+    zero_counts()
+    layers_mod.flash_attention = capture
+    try:
+        toks, rows, prefill_ms, step_ms = whisper_generate(
+            model, params, batch, n, dev)
+    finally:
+        layers_mod.flash_attention = fa.flash_attention
+    k7 = fa.LAUNCHES["flash_attention"]
+    per_prefill = cfg.n_encoder_layers + 2 * cfg.n_layers
+    if k7 != per_prefill + n * 2 * cfg.n_layers:
+        raise AssertionError(f"whisper: {k7} K7 launches for one prefill "
+                             f"and {n} decode steps")
+    if set(calls) != {"encoder", "prefill", "cross", "decode",
+                      "cross_decode"}:
+        raise AssertionError(f"whisper's K7 calls: {sorted(calls)}")
+    res = dict(launches=k7, prefill_ms=prefill_ms, step_ms=step_ms,
+               tokens_s=B / (step_ms / 1e3))
+    gap, scale, limited = whisper_teacher_forced(model, params, batch, toks,
+                                                 rows, GAP_BOUND, dev)
+    f32 = Model(cfg.replace(compute_dtype="float32"))
+    toks32, rows32, _, _ = whisper_generate(f32, params, batch, n, dev)
+    gap32, scale32, limited32 = whisper_teacher_forced(
+        f32, params, batch, toks32, rows32, GAP_BOUND_F32, dev)
+    res.update(gap=gap, gap32=gap32, limited=limited, limited32=limited32)
+    log(f"  prefill of {B} prompts x {S} tokens {prefill_ms:.2f} ms, then {n} "
+        f"greedy decode steps: median {step_ms:.3f} ms a step "
+        f"({res['tokens_s']:.1f} tokens/s), host clock to the chosen tokens; "
+        f"K7 launches {k7} = ({cfg.n_encoder_layers} + 2 x {cfg.n_layers}) + "
+        f"{n} x 2 x {cfg.n_layers}; decode logits within {gap:.4g} of the "
+        f"teacher-forced forward's (largest {scale:.4g}), every token its "
+        f"argmax, {limited}/{toks.size} margin-limited; in float32 compute "
+        f"within {gap32:.4g} (largest {scale32:.4g}), {limited32}/"
+        f"{toks32.size} margin-limited {tag}")
+    del rows, rows32
+    gen_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+
+    # (b) training: the encoder once, the decoder rematerialised
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1, decay_steps=TRAIN_STEPS)
+    built = make_train_step(cfg, ocfg, TrainConfig(), device=dev)
+    params = params_from_reference(tree, device=dev)
+    opt = init_state(ocfg, params)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=WHISPER_TRAIN_S,
+                                    global_batch=B))
+    per_step = cfg.n_encoder_layers + 2 * 2 * cfg.n_layers
+    losses, train_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    layers_mod.flash_attention = capture
+    try:
+        for s in range(TRAIN_STEPS):
+            tb = {"tokens": pipe.global_batch_at(s)["tokens"],
+                  "enc_frames": rng.standard_normal(
+                      (B, cfg.encoder_seq, cfg.d_model), dtype=np.float32)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = built["step"](params, opt, tb)
+            losses.append(float(m["loss"]))
+            train_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        layers_mod.flash_attention = fa.flash_attention
+    train_k7 = fa.LAUNCHES["flash_attention"]
+    if train_k7 != per_step * TRAIN_STEPS:
+        raise AssertionError(f"whisper training: {train_k7} K7 launches, not "
+                             f"{per_step} x {TRAIN_STEPS}")
+    if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"whisper training losses {losses}")
+    med = statistics.median(train_ms[1:])
+    if sum(by_kind.values()) != k7 + train_k7:
+        raise AssertionError(f"whisper's K7 calls by kind {by_kind}, "
+                             f"launches {k7} + {train_k7}")
+    res.update(train_launches=train_k7, losses=losses, train_ms=med,
+               by_kind=by_kind,
+               train_tokens_s=B * WHISPER_TRAIN_S / (med / 1e3),
+               train_peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9,
+               gen_peak_gb=gen_peak)
+    log(f"  {TRAIN_STEPS} make_train_step steps of {B} x {WHISPER_TRAIN_S} "
+        f"tokens with {cfg.encoder_seq} frames each: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; median of steps 2-{TRAIN_STEPS} {med:.3f} ms (first "
+        f"{train_ms[0]:.1f} ms), {res['train_tokens_s']:,.0f} decoder "
+        f"tokens/s; K7 launches {train_k7} = {TRAIN_STEPS} x "
+        f"({cfg.n_encoder_layers} + 2 x 2 x {cfg.n_layers}: the decoder's "
+        f"remat recompute); peak allocated {res['train_peak_gb']:.2f} GB "
+        f"training, {gen_peak:.2f} GB generating {tag}")
+    del params, opt, built
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 3l: {res['phase_s']:.1f} s")
+    return res, calls
+
+
+def mamba_train_path(dev, tag, zero_counts):
+    """Phase 3m (b): ``python -m repro_torch.launch.train --arch
+    mamba2_1_3b --steps 8`` through its ``main()`` (the CLI's batch of 8 x
+    128 tokens, remat "full", a checkpoint every 2 steps under a temporary
+    directory): its summary line, each step's host-clock ms from the
+    trainer's history, tokens/s, the losses and the peak allocation.
+
+    The CLI's four checkpoints hold 17.4 GB of arrays each, 69 GB in all:
+    more than this smoke run keeps its disk writes under (45 GiB). So
+    here each checkpoint's ``arrays.npz`` is written empty (``np.savez``
+    replaced for the call, its bytes counted); everything else a save
+    does runs: the host copy, the write thread, the manifest, the atomic
+    rename and the retention."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import Trainer
+
+    cfg = get_config("mamba2_1_3b")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seen = []
+    run = Trainer.run
+
+    def kept(self):
+        seen.append(self)
+        return run(self)
+
+    savez, payload = np.savez, []
+
+    def empty_savez(file, **arrays):
+        payload.append(sum(a.nbytes for a in arrays.values()))
+        open(file, "wb").close()
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        Trainer.run = kept
+        np.savez = empty_savez
+        zero_counts()
+        try:
+            with contextlib.redirect_stdout(buf):
+                train_cli.main(["--arch", "mamba2_1_3b", "--steps",
+                                str(MAMBA_TRAIN_STEPS), "--ckpt-dir",
+                                os.path.join(root, "ck")])
+        finally:
+            Trainer.run = run
+            np.savez = savez
+        saved = sorted(os.listdir(os.path.join(root, "ck")))
+    wall = time.perf_counter() - t0
+    out = buf.getvalue().strip()
+    want = (f"arch=mamba2-1.3b steps={MAMBA_TRAIN_STEPS} restarts=0 loss")
+    if not out.startswith(want):
+        raise AssertionError(f"the training CLI printed {out!r}")
+    hist = seen[0].history
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["time_s"] * 1e3 for h in hist]
+    if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"mamba2 training losses {losses}")
+    if fa.LAUNCHES["flash_attention"]:
+        raise AssertionError("the SSM trained through attention")
+    med = statistics.median(step_ms[1:])
+    tokens = 8 * 128
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    res = dict(losses=losses, step_ms=med, first_ms=step_ms[0],
+               tokens_s=tokens / (med / 1e3), peak_gb=peak, wall_s=wall,
+               mfu=6.0 * cfg.param_count() * tokens
+               / (med / 1e3 * BF16_TENSOR_FLOPS), checkpoints=saved,
+               saves=len(payload))
+    log(f"  python -m repro_torch.launch.train --arch mamba2_1_3b --steps "
+        f"{MAMBA_TRAIN_STEPS} on the card: {out}; {wall:.1f} s in all with "
+        f"{len(payload)} saves, kept {saved}, their arrays "
+        + ", ".join(f"{b / 1e9:.2f}" for b in payload)
+        + f" GB each counted, not written {tag}")
+    log(f"  mamba2-1.3b train step (B = 8 x 128, remat {cfg.remat!r}; the "
+        f"trainer's host clock to the loss): median of steps "
+        f"2-{MAMBA_TRAIN_STEPS} {med:.3f} ms (first {step_ms[0]:.1f} ms), "
+        f"{res['tokens_s']:,.0f} tokens/s, mfu {res['mfu']:.4f}; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; peak allocated {peak:.2f} GB besides {held / 1e9:.2f} GB "
+        f"{tag}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def check_kernel_api(torch, dev, index, q_words, p):
     """Phase 2: the reference's kernel API (ROADMAP C-P4) on the card: the
     package's ``verify_tuples_grouped`` on a padded (B, C, W) block (one K1
@@ -3488,6 +3887,19 @@ def main() -> int:
     examples = examples_path(dev, tag, zero_counts, read_counts)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 3l: whisper-tiny's encoder-decoder at full width and depth "
+        f"{tag}")
+    whisper, k7_whisper = whisper_path(dev, tag, zero_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3m: mamba2-1.3b at full width and depth, token serving "
+        f"{tag}")
+    mamba_serving, _ = serve_path(dev, tag, zero_counts, arch="mamba2_1_3b",
+                                  label="3m")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3m: mamba2-1.3b training through the CLI {tag}")
+    mamba_training = mamba_train_path(dev, tag, zero_counts)
     launches = {"verify_grouped": amih_counts["verify_grouped"],
                 "probe_walk": amih_counts["probe_walk"],
                 "probe_walk_cluster": amih_counts["probe_walk_cluster"],
@@ -3501,7 +3913,8 @@ def main() -> int:
                 "flash_attention": retrieval["launches"]
                 + serving["launches"] + training["launches"]
                 + llama_serving["launches"] + llama_training["launches"]
-                + sum(g["launches"] for g in granite.values())}
+                + sum(g["launches"] for g in granite.values())
+                + whisper["launches"] + whisper["train_launches"]}
     log(f"  kernel launches, AMIH path: {amih_counts}; K2/K3 by wrapper "
         f"and query rows: " + ", ".join(
             f"{name} B={rows}: {n}"
@@ -3633,6 +4046,20 @@ def main() -> int:
             f"{e['library_diff']:.4g}), bound {e['bound_ms']:.6f} ms "
             f"({e['bound_by']}); within {e['max_abs_err']:.4g} of plain "
             f"{tag}")
+    # whisper's three operands no earlier path gives K7: the encoder's
+    # 1,500-key self-attention, the cross-attention (Sq != Sk) and the
+    # cross-attention decode (valid_len 1,500); launches on 3l by kind
+    for kind in ("encoder", "cross", "cross_decode"):
+        e = k7_path["3l whisper-tiny", kind] = check_flash_call(
+            fa, *k7_whisper[kind])
+        e["launches"] = whisper["by_kind"][kind]
+        log(f"  flash_attention, 3l whisper-tiny {kind} ({e['shape']}): "
+            f"kernel {e['ms']:.6f} ms, plain {e['plain_ms']:.2f} ms, "
+            f"scaled_dot_product_attention {e['library_ms']:.6f} ms on the "
+            f"same keys (differs from plain by {e['library_diff']:.4g}), "
+            f"bound {e['bound_ms']:.6f} ms ({e['bound_by']}); "
+            f"{e['launches']} launches on 3l; within "
+            f"{e['max_abs_err']:.4g} of plain {tag}")
 
     def pick(names):
         best = None
@@ -3790,6 +4217,30 @@ def main() -> int:
         f"(bound {e['bound_ms']:.6f}, SDPA {e['library_ms']:.6f})")
     for name, r in examples.items():
         log(f"  example {name}: {r['s']:.1f} s, peak {r['peak_gb']:.2f} GB")
+    r = whisper
+    log(f"  whisper-tiny (4 + 4 layers, B = {WHISPER_B}): prefill "
+        f"{r['prefill_ms']:.2f} ms, decode step {r['step_ms']:.3f} ms "
+        f"({r['tokens_s']:.1f} tokens/s), K7 launches {r['launches']}; "
+        f"train step {r['train_ms']:.3f} ms ({r['train_tokens_s']:,.0f} "
+        f"tokens/s), peak {r['train_peak_gb']:.2f} GB, losses "
+        f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, K7 launches "
+        f"{r['train_launches']}; K7 at the encoder, cross and cross-decode "
+        + "; ".join(f"{k7_path['3l whisper-tiny', k]['ms']:.6f} ms (bound "
+                    f"{k7_path['3l whisper-tiny', k]['bound_ms']:.6f}, SDPA "
+                    f"{k7_path['3l whisper-tiny', k]['library_ms']:.6f})"
+                    for k in ("encoder", "cross", "cross_decode")))
+    r = mamba_serving
+    log(f"  token serving (mamba2-1.3b, 48 layers, B = 8): "
+        f"{r['tokens_s']:.1f} tokens/s, decode step {r['step_ms']:.3f} ms "
+        f"(median; {r['step_ms_big']:.3f} at {r['group_big']} rows), card "
+        f"busy {r['prof_busy']:.4f} ms a profiled step, peak "
+        f"{r['peak_gb']:.2f} GB")
+    r = mamba_training
+    log(f"  training (mamba2-1.3b, 48 layers, B = 8 x 128, the CLI): step "
+        f"{r['step_ms']:.3f} ms (median of steps 2-{MAMBA_TRAIN_STEPS}), "
+        f"{r['tokens_s']:,.0f} tokens/s, mfu {r['mfu']:.4f}, peak "
+        f"{r['peak_gb']:.2f} GB, losses {r['losses'][0]:.4f} -> "
+        f"{r['losses'][-1]:.4f}; {r['wall_s']:.1f} s with its checkpoints")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 """Architectures the port runs: the dense family, gemma-2b (GeGLU, the
-retrieval encoder) and llama3-8b, granite-3-8b and granite-34b (SwiGLU).
+retrieval encoder) and llama3-8b, granite-3-8b and granite-34b (SwiGLU);
+whisper-tiny (encoder-decoder) and mamba2-1.3b (SSM).
 
 ``get_config(name)`` returns the published configuration, ``get_tiny(name)``
 the reduced same-family configuration the CPU tests use (as in the
@@ -15,7 +16,8 @@ from ..models.common import ArchConfig
 
 __all__ = ["ARCH_IDS", "get_config", "get_tiny"]
 
-ARCH_IDS: List[str] = ["granite_3_8b", "llama3_8b", "granite_34b", "gemma_2b"]
+ARCH_IDS: List[str] = ["whisper_tiny", "granite_3_8b", "llama3_8b",
+                       "granite_34b", "gemma_2b", "mamba2_1_3b"]
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
 

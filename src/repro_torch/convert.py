@@ -11,11 +11,14 @@ so both packages search the very same tables.
 
 ``params_from_reference`` takes the reference's parameter tree with its
 leaves as numpy arrays (the caller does the ``np.asarray``) and returns
-the port's dict of tensors with the same keys, shapes and dtypes.
+the port's dict of tensors with the same keys, shapes and dtypes (every
+family's tree: the enc-dec family's ``enc_layers``, ``enc_norm``,
+``xattn`` and layernorm biases, the SSM's ``in_proj``, ``conv_w``, ...).
 ``cache_from_reference`` does the same for the reference's decode cache
-(``{"layers": LayerCache(attn=AttnCache(k, v), ssm=None)}``, leaves as
-numpy, bf16 ones as ``ml_dtypes.bfloat16``) and returns the port's
-``LayerCache``/``AttnCache`` tree. ``opt_state_from_reference`` does the
+(``{"layers": LayerCache(attn=AttnCache(k, v), ssm=SSMState(conv, ssm))}``
+with either half None, or the enc-dec family's ``EncDecCache(self_kv,
+cross_kv)``; leaves as numpy, bf16 ones as ``ml_dtypes.bfloat16``) and
+returns the port's tree of the same NamedTuples. ``opt_state_from_reference`` does the
 same for the reference's AdamW state (``init_state``/``apply_updates``:
 the step and the moments, int8 ``QuantMoment``s included).
 """
@@ -115,18 +118,27 @@ def cache_from_reference(tree, device=None):
     """The port's decode cache from the reference's cache tree of numpy
     leaves, on ``device`` (None: the CUDA device)."""
     from .models.blocks import AttnCache, LayerCache
+    from .models.encdec import EncDecCache
+    from .models.ssm import SSMState
 
+    kinds = {c.__name__: c for c in (AttnCache, LayerCache, EncDecCache,
+                                     SSMState)}
     dev = resolve_device(device)
-    out = {}
-    for name, lc in tree.items():
-        attn = lc.attn
-        if lc.ssm is not None or attn is None:
-            raise ValueError(f"{name}: only attention caches are ported "
-                             "(the SSM state is ROADMAP A11)")
-        out[name] = LayerCache(attn=AttnCache(k=_tensor(attn.k, dev),
-                                              v=_tensor(attn.v, dev)),
-                               ssm=None)
-    return out
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            kind = kinds.get(type(x).__name__)
+            if kind is None or kind._fields != x._fields:
+                raise ValueError(f"no port cache type for {type(x).__name__}"
+                                 f"{x._fields}")
+            return kind(*(conv(v) for v in x))
+        return _tensor(x, dev)
+
+    return conv(tree)
 
 
 def opt_state_from_reference(tree, device=None):

@@ -1,13 +1,16 @@
-"""Transformer block of the port's LM (the dense branch of the reference's
-``models/blocks.py``):
+"""Transformer block of the port's LM (the dense, encoder-decoder and SSM
+branches of the reference's ``models/blocks.py``):
 
   dense   x += attn(norm(x));  x += mlp(norm(x))
+  ssm     x += ssd(norm(x))                         (no MLP when d_ff == 0)
 
 ``block_forward`` is the full-sequence path (the encoder, prefill, the
 scoring forward), ``block_decode`` the single-token path against a KV
-cache. Caches are NamedTuples laid out as the reference lays them. The
-other families (MoE, SSM, hybrid, enc-dec) are ROADMAP A11 and raise
-``NotImplementedError``.
+cache or an SSM state. The enc-dec family's layers run the dense branch
+here (the reference's ``block_forward`` does the same; its decoder with
+cross-attention lives in ``encdec.py``). Caches are NamedTuples laid out
+as the reference lays them. MoE and hybrid are ROADMAP A11 and raise
+``NotImplementedError``, and so does the vlm family.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import ssm as ssm_lib
 from .common import not_ported
 from .layers import (
     apply_norm,
@@ -33,6 +37,7 @@ __all__ = [
     "attention_full",
     "block_decode",
     "block_forward",
+    "cross_attention_decode",
 ]
 
 
@@ -43,11 +48,11 @@ class AttnCache(NamedTuple):
 
 class LayerCache(NamedTuple):
     attn: Optional[AttnCache]
-    ssm: None          # the SSM state (ROADMAP A11); always None here
+    ssm: Optional[ssm_lib.SSMState]
 
 
-def _dense(cfg):
-    if cfg.family != "dense" or cfg.is_moe:
+def _ported(cfg):
+    if cfg.family not in ("dense", "encdec", "ssm") or cfg.is_moe:
         raise not_ported(f"the {cfg.family!r} block")
 
 
@@ -94,11 +99,30 @@ def attention_decode(x, p, cfg, cache: AttnCache, pos: int, *,
     return out, cache
 
 
+def cross_attention_decode(x, p, cfg, cross_k, cross_v):
+    """Decoder-side cross-attention of (B, 1, d) against the encoder's
+    precomputed (B, S_enc, Hkv, Dh) k and v: K7 with ``valid_len`` =
+    S_enc."""
+    cdt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
+    out = decode_attention(q, cross_k, cross_v, cross_k.shape[1])
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
+
+
 def block_forward(cfg, p, x, positions, *, window: int = 0,
                   build_cache: bool = False, causal: bool = True):
-    """One dense layer, full sequence. Returns (x, aux, cache or None)."""
-    _dense(cfg)
+    """One layer, full sequence. Returns (x, aux, cache or None)."""
+    _ported(cfg)
     h = apply_norm(x, p["ln1"], cfg.norm)
+    if cfg.family == "ssm":
+        cache = None
+        if build_cache:
+            out, state = ssm_lib.ssm_forward(h, p["ssm"], cfg,
+                                             return_state=True)
+            cache = LayerCache(attn=None, ssm=state)
+        else:
+            out = ssm_lib.ssm_forward(h, p["ssm"], cfg)
+        return x + out, {}, cache
     attn_out, (k, v) = attention_full(h, p["attn"], cfg, positions,
                                       causal=causal, window=window)
     x = x + attn_out
@@ -112,10 +136,13 @@ def block_forward(cfg, p, x, positions, *, window: int = 0,
 
 def block_decode(cfg, p, x, cache: LayerCache, pos: int, *,
                  window: int = 0):
-    """One dense layer, one token. Returns (x, cache), the cache written
-    in place."""
-    _dense(cfg)
+    """One layer, one token. Returns (x, cache): a KV cache is written in
+    place; an SSM layer returns its new state (the caller stores it)."""
+    _ported(cfg)
     h = apply_norm(x, p["ln1"], cfg.norm)
+    if cfg.family == "ssm":
+        out, new_ssm = ssm_lib.ssm_decode_step(h, cache.ssm, p["ssm"], cfg)
+        return x + out, LayerCache(attn=None, ssm=new_ssm)
     attn_out, new_attn = attention_decode(h, p["attn"], cfg, cache.attn, pos,
                                           window=window)
     x = x + attn_out

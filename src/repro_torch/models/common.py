@@ -2,10 +2,11 @@
 ``models/common.py`` ``ArchConfig``, with torch dtypes).
 
 Every parameter shape derives from one frozen ``ArchConfig``. The port
-runs only the dense family (the retrieval encoder, serving, training);
-the fields of the other families are kept so that a reference config
-copies over unchanged, and the code that would read them raises
-``NotImplementedError`` (ROADMAP A11).
+runs the dense family (the retrieval encoder, serving, training), the
+encoder-decoder (whisper) and the SSM (mamba2); the fields of the other
+families are kept so that a reference config copies over unchanged, and
+the code that would read them raises ``NotImplementedError`` (ROADMAP
+A11).
 """
 
 from __future__ import annotations
@@ -89,6 +90,17 @@ class ArchConfig:
         while h % self.n_kv_heads:
             h += 1
         return h
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        if self.ssm_heads:
+            return self.ssm_heads * self.ssm_head_dim
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads_(self) -> int:
+        return self.ssm_heads or self.d_inner // self.ssm_head_dim
 
     @property
     def is_moe(self) -> bool:

@@ -1,5 +1,6 @@
-"""Core layers of the port's LM: norms, RoPE, MLPs and attention (a port
-of the reference's ``models/layers.py``).
+"""Core layers of the port's LM: norms (RMSNorm, LayerNorm), RoPE,
+sinusoidal positions, MLPs and attention (a port of the reference's
+``models/layers.py``).
 
 ``blocked_attention`` (training, prefill, the encoder) and
 ``decode_attention`` (one query row against a linear KV cache, with
@@ -17,6 +18,7 @@ reference's does. No caller of the port shifts the query block (the reference's
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -29,9 +31,11 @@ __all__ = [
     "apply_rope",
     "blocked_attention",
     "decode_attention",
+    "layernorm",
     "mlp",
     "rmsnorm",
     "rope_angles",
+    "sinusoidal_positions",
 ]
 
 
@@ -44,10 +48,19 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return (out * scale.float()).to(dt)
 
 
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dt)
+
+
 def apply_norm(x, params, kind: str):
-    if kind != "rmsnorm":
-        raise not_ported(f"the {kind!r} norm")
-    return rmsnorm(x, params["scale"])
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    return layernorm(x, params["scale"], params["bias"])
 
 
 # ------------------------------------------------------------------- RoPE
@@ -73,18 +86,30 @@ def apply_rope(x, cos, sin):
     return out.to(dt)
 
 
+# ------------------------------------------------ sinusoidal (whisper enc)
+def sinusoidal_positions(seq: int, d_model: int, device=None):
+    """(seq, d_model) float32: sin then cos of each position times
+    10000^(-i / half)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=device) / half)
+    ang = pos * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ------------------------------------------------------------------- MLPs
 def mlp(x, params, activation: str):
-    """Gated feed-forward, SwiGLU or GeGLU. Weights: wi, wi_gate, wo. The
-    ungated ``"gelu"`` MLP (whisper) is ROADMAP A11."""
-    if activation == "swiglu":
-        act = F.silu
-    elif activation == "geglu":
-        act = functools.partial(F.gelu, approximate="tanh")
-    else:
-        raise not_ported(f"the {activation!r} MLP")
+    """Gated (SwiGLU, GeGLU; weights wi, wi_gate, wo) or ungated
+    (``"gelu"``, whisper; weights wi, wo) feed-forward, gelu in its tanh
+    form."""
     cdt = x.dtype
-    h = act(x @ params["wi_gate"].to(cdt)) * (x @ params["wi"].to(cdt))
+    if activation in ("swiglu", "geglu"):
+        act = F.silu if activation == "swiglu" else functools.partial(
+            F.gelu, approximate="tanh")
+        h = act(x @ params["wi_gate"].to(cdt)) * (x @ params["wi"].to(cdt))
+    else:  # gelu
+        h = F.gelu(x @ params["wi"].to(cdt), approximate="tanh")
     return h @ params["wo"].to(cdt)
 
 

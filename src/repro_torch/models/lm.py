@@ -1,13 +1,15 @@
-"""The port's decoder LM, dense family (the reference's ``models/lm.py``):
-parameter templates, random init, embedding, the layer stack, the LM head,
-the scoring forward, the loss, the decode cache, prefill and the decode
-step.
+"""The port's decoder LM, dense and SSM families (the reference's
+``models/lm.py``): parameter templates (the enc-dec family's too, whose
+forward lives in ``encdec.py``), random init, embedding, the layer stack,
+the LM head, the scoring forward, the loss, the decode cache, prefill and
+the decode step.
 
 Parameters are a plain dict of tensors with the reference's tree: per
 layer tensors stacked on a leading "layers" axis under ``"layers"``, the
 embedding, the final norm, and ``"unembed"`` where embeddings are untied.
 ``init_params`` draws them as the reference does (normal, std 0.02 and
-0.02 / sqrt(2 L) for output projections, norms at 1; ``param_dtype``),
+0.02 / sqrt(2 L) for output projections, norms at 1, biases at 0, the
+SSM's ``A_log``, ``dt_bias`` and ``D_skip`` fixed; ``param_dtype``),
 from a ``torch.Generator`` on the target device; ``param_specs`` gives
 their shapes and dtypes on the ``meta`` device.
 
@@ -23,13 +25,16 @@ checkpointed chunks of ``ce_chunk`` tokens.
 
 The decode cache is ``{"layers": LayerCache(attn=AttnCache(k, v),
 ssm=None)}`` with k and v laid out (layers, batch, kv_len, kv_heads,
-head_dim) in the compute dtype, as the reference's. ``decode_step``
-writes its token's k and v into that cache in place (the reference's
-serving engine donates it) and returns it. ``prefill``, ``forward``,
-``loss_fn``, ``init_cache`` and ``decode_step`` run on ``device`` (None:
-the CUDA device; it raises without one) and refuse parameters that lie
-elsewhere. MoE, SSM, hybrid, enc-dec and vlm, and MoE's loss terms, are
-ROADMAP A11 and raise ``NotImplementedError``.
+head_dim) in the compute dtype, as the reference's; the SSM family's is
+``LayerCache(attn=None, ssm=SSMState(conv, ssm))``, conv (layers, batch,
+conv_width - 1, conv_dim) in the compute dtype and ssm (layers, batch, H,
+P, N) in float32. ``decode_step`` writes its token's k and v, or each
+layer's new SSM state, into that cache in place (the reference's serving
+engine donates it) and returns it. ``prefill``, ``forward``, ``loss_fn``,
+``init_cache`` and ``decode_step`` run on ``device`` (None: the CUDA
+device; it raises without one) and refuse parameters that lie elsewhere.
+MoE, hybrid and vlm, and MoE's loss terms, are ROADMAP A11 and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from torch.utils.checkpoint import (
 
 from ..kernels.ops import resolve_device
 from ..tree import leaves_with_path, tree_map, unflatten
+from . import ssm as ssm_lib
 from .blocks import AttnCache, LayerCache, block_decode, block_forward
 from .common import ArchConfig, not_ported
 from .layers import apply_norm
@@ -77,14 +83,19 @@ class PSpec(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
     kind: str = "p"        # p = param dtype, f = float32
-    init: str = "normal"   # normal | out | zeros | ones
+    init: str = "normal"   # normal | out | zeros | ones | ssm_special
+
+
+_FAMILIES = ("dense", "encdec", "ssm")
 
 
 # ------------------------------------------------------------- templates
 def _norm_t(cfg) -> Dict[str, PSpec]:
-    if cfg.norm != "rmsnorm":
-        raise not_ported(f"the {cfg.norm!r} norm")
-    return {"scale": PSpec((cfg.d_model,), ("embed",), "p", "ones")}
+    d = cfg.d_model
+    t = {"scale": PSpec((d,), ("embed",), "p", "ones")}
+    if cfg.norm == "layernorm":
+        t["bias"] = PSpec((d,), ("embed",), "p", "zeros")
+    return t
 
 
 def _attn_t(cfg) -> Dict[str, PSpec]:
@@ -100,21 +111,41 @@ def _attn_t(cfg) -> Dict[str, PSpec]:
 
 
 def _mlp_t(cfg, d_ff: int) -> Dict[str, PSpec]:
-    if cfg.activation not in ("swiglu", "geglu"):
-        raise not_ported(f"the {cfg.activation!r} MLP")
     d = cfg.d_model
-    return {
+    t = {
         "wi": PSpec((d, d_ff), ("embed", "mlp")),
         "wo": PSpec((d_ff, d), ("mlp", "embed"), "p", "out"),
-        "wi_gate": PSpec((d, d_ff), ("embed", "mlp")),
     }
+    if cfg.activation in ("swiglu", "geglu"):
+        t["wi_gate"] = PSpec((d, d_ff), ("embed", "mlp"))
+    return t
 
 
-def layer_template(cfg: ArchConfig):
-    """Template for one dense layer (unstacked)."""
-    if cfg.family != "dense" or cfg.is_moe:
+def _ssm_t(cfg) -> Dict[str, PSpec]:
+    out = {}
+    for name, (shape, axes, kind) in ssm_lib.ssm_param_shapes(cfg).items():
+        init = "ssm_special" if name in ("A_log", "dt_bias", "D_skip") else (
+            "out" if name == "out_proj" else
+            "ones" if name == "norm_scale" else
+            "zeros" if name == "conv_b" else "normal"
+        )
+        out[name] = PSpec(shape, axes, kind, init)
+    return out
+
+
+def layer_template(cfg: ArchConfig, cross_attn: bool = False):
+    """Template for one layer (unstacked); ``cross_attn`` adds the
+    decoder's cross-attention (``lnx``, ``xattn``) of the enc-dec family."""
+    if cfg.family not in _FAMILIES or cfg.is_moe:
         raise not_ported(f"the {cfg.family!r} layer")
-    t: Dict[str, Any] = {"ln1": _norm_t(cfg), "attn": _attn_t(cfg)}
+    t: Dict[str, Any] = {"ln1": _norm_t(cfg)}
+    if cfg.family == "ssm":
+        t["ssm"] = _ssm_t(cfg)
+    else:
+        t["attn"] = _attn_t(cfg)
+    if cross_attn:
+        t["lnx"] = _norm_t(cfg)
+        t["xattn"] = _attn_t(cfg)
     if cfg.d_ff > 0:
         t["ln2"] = _norm_t(cfg)
         t["mlp"] = _mlp_t(cfg, cfg.d_ff)
@@ -138,7 +169,14 @@ def model_template(cfg: ArchConfig):
     }
     if not cfg.tie_embeddings:
         t["unembed"] = PSpec((d, v), ("embed", "vocab"), "p", "out")
-    t["layers"] = _stack(layer_template(cfg), cfg.n_layers)
+    if cfg.family == "encdec":
+        # the decoder's layers carry cross-attention; the encoder's do not
+        t["layers"] = _stack(layer_template(cfg, cross_attn=True),
+                             cfg.n_layers)
+        t["enc_layers"] = _stack(layer_template(cfg), cfg.n_encoder_layers)
+        t["enc_norm"] = _norm_t(cfg)
+    else:
+        t["layers"] = _stack(layer_template(cfg), cfg.n_layers)
     return t
 
 
@@ -172,6 +210,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None):
             t = torch.zeros(spec.shape, dtype=dt, device=device)
         elif spec.init == "ones":
             t = torch.ones(spec.shape, dtype=dt, device=device)
+        elif spec.init == "ssm_special":
+            t = _ssm_special(path[-1], spec.shape, dt, device)
         else:
             std = 0.02
             if spec.init == "out":
@@ -184,6 +224,22 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None):
             node = node.setdefault(k, {})
         node[path[-1]] = t
     return out
+
+
+def _ssm_special(name: str, shape, dt, device):
+    """The SSM's fixed per-head vectors, broadcast over the layers:
+    A_log = log(linspace(1, 16, H)), dt_bias = the inverse softplus of
+    dt0 = exp(linspace(log 1e-3, log 1e-1, H)), D_skip = 1."""
+    h = shape[-1]
+    if name == "A_log":
+        base = torch.log(torch.linspace(1.0, 16.0, h, device=device))
+    elif name == "dt_bias":
+        dt0 = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), h,
+                                       device=device))
+        base = dt0 + torch.log(-torch.expm1(-dt0))
+    else:  # D_skip
+        base = torch.ones(h, device=device)
+    return base.expand(shape).to(dt).contiguous()
 
 
 # ----------------------------------------------------------------- embed
@@ -377,24 +433,28 @@ def loss_fn(cfg: ArchConfig, params, batch, *, device=None):
 def cache_template(cfg: ArchConfig, batch: int, max_seq: int):
     """The decode cache's shapes and dtypes, allocated nowhere (tensors on
     the ``meta`` device; the reference returns ShapeDtypeStructs)."""
-    if cfg.family != "dense" or cfg.is_moe or cfg.first_k_dense:
+    if cfg.family not in _FAMILIES or cfg.is_moe or cfg.first_k_dense:
         raise not_ported(f"the {cfg.family!r} decode cache")
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
+    L, cdt = cfg.n_layers, cfg.cdtype()
+
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    if cfg.family == "ssm":
+        H, P, N, _, conv_dim, _ = ssm_lib.ssm_dims(cfg)
+        return {"layers": LayerCache(attn=None, ssm=ssm_lib.SSMState(
+            conv=meta((L, batch, cfg.conv_width - 1, conv_dim), cdt),
+            ssm=meta((L, batch, H, P, N), torch.float32)))}
+    shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
     return {"layers": LayerCache(
-        attn=AttnCache(
-            k=torch.empty(shape, dtype=cfg.cdtype(), device="meta"),
-            v=torch.empty(shape, dtype=cfg.cdtype(), device="meta")),
-        ssm=None)}
+        attn=AttnCache(k=meta(shape, cdt), v=meta(shape, cdt)), ssm=None)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None):
     """A zero decode cache on ``device`` (None: the CUDA device)."""
     dev = resolve_device(device)
-    a = cache_template(cfg, batch, max_seq)["layers"].attn
-    return {"layers": LayerCache(
-        attn=AttnCache(k=torch.zeros_like(a.k, device=dev),
-                       v=torch.zeros_like(a.v, device=dev)),
-        ssm=None)}
+    return tree_map(lambda t: torch.zeros_like(t, device=dev),
+                    cache_template(cfg, batch, max_seq))
 
 
 # ---------------------------------------------------------------- decode
@@ -405,10 +465,16 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int, *,
     _, tokens = _placed(params, tokens, device)
     pos = int(pos)
     h = embed_tokens(cfg, params, tokens)
-    kv = cache["layers"].attn
+    kv, st = cache["layers"].attn, cache["layers"].ssm
     for i in range(_n_layers(params["layers"])):
-        lc = LayerCache(attn=AttnCache(k=kv.k[i], v=kv.v[i]), ssm=None)
-        h, _ = block_decode(cfg, _layer(params["layers"], i), h, lc, pos)
+        lc = LayerCache(
+            attn=None if kv is None else AttnCache(k=kv.k[i], v=kv.v[i]),
+            ssm=None if st is None else ssm_lib.SSMState(conv=st.conv[i],
+                                                         ssm=st.ssm[i]))
+        h, new = block_decode(cfg, _layer(params["layers"], i), h, lc, pos)
+        if st is not None:
+            st.conv[i].copy_(new.ssm.conv)
+            st.ssm[i].copy_(new.ssm.ssm)
     h = apply_norm(h, params["final_norm"], cfg.norm)
     return lm_head(cfg, params, h)[:, 0], cache
 
@@ -423,14 +489,20 @@ def prefill(cfg: ArchConfig, params, batch, max_seq: Optional[int] = None,
     dev, tokens = _placed(params, batch["tokens"], device)
     h = embed_tokens(cfg, params, tokens)
     positions = torch.arange(h.shape[1], device=dev)
-    ks, vs = [], []
+    caches = []
     for i in range(_n_layers(params["layers"])):
         h, _, lc = block_forward(cfg, _layer(params["layers"], i), h,
                                  positions, build_cache=True)
-        ks.append(lc.attn.k)
-        vs.append(lc.attn.v)
+        caches.append(lc)
     h = apply_norm(h, params["final_norm"], cfg.norm)
     logits = lm_head(cfg, params, h[:, -1:, :])[:, 0]
-    cache = {"layers": LayerCache(
-        attn=AttnCache(k=torch.stack(ks), v=torch.stack(vs)), ssm=None)}
-    return logits, cache
+    return logits, {"layers": _stack_caches(caches)}
+
+
+def _stack_caches(caches):
+    """Per-layer caches -> one cache whose leaves are stacked on a leading
+    layers axis."""
+    first = caches[0]
+    cols = list(zip(*(leaves_with_path(c) for c in caches)))
+    return unflatten(first, [torch.stack([leaf for _, leaf in col])
+                             for col in cols])

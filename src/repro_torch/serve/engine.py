@@ -5,9 +5,12 @@ Slot-based continuous batching: a fixed device batch of ``max_batch``
 slots; requests occupy slots, and finished slots are refilled from the
 queue. The KV cache is allocated once at ``max_seq`` and written in
 place. Slots decode at a shared position, so each step advances the
-lagging position group; the other rows keep their cache (the decode
-writes slot ``pos`` of every row, and the rows outside the group get
-their saved column back, as the reference's masked merge keeps them).
+lagging position group; the other rows keep their cache, as the
+reference's masked merge of every cache leaf keeps them: the decode
+writes slot ``pos`` of every row's K/V, and the rows outside the group
+get their saved column back; an SSM decode rewrites every row's whole
+conv and SSM state, and the rows outside the group get theirs back
+whole.
 
 Token choice happens on the host, on the logits copied out as float32:
 ``np.argmax``, or a draw from ``np.random.default_rng(seed + 7919 *
@@ -27,7 +30,7 @@ import torch
 from ..kernels.ops import resolve_device
 from ..models import Model
 from ..models.common import ArchConfig
-from ..tree import leaves_with_path
+from ..tree import leaves, leaves_with_path
 
 __all__ = ["ServeConfig", "ServeEngine", "Request"]
 
@@ -116,9 +119,9 @@ class ServeEngine:
                 self._prefill_into_slot(i, req)
 
     def _prefill_into_slot(self, slot: int, req: Request):
-        """Prefill one request (B = 1) and paste its KV into the slot's
-        row, zero past the prompt, as the reference pastes its zero-padded
-        cache."""
+        """Prefill one request (B = 1) and paste every leaf of its cache
+        (K/V sized to the prompt, the SSM state) into the slot's row, zero
+        past the prompt, as the reference pastes its zero-padded cache."""
         S = len(req.prompt)
         if S + req.max_new_tokens > self.scfg.max_seq:
             raise ValueError(f"prompt too long: {S} tokens + "
@@ -127,10 +130,11 @@ class ServeEngine:
         logits, cache1 = self.model.prefill(
             self.params, {"tokens": req.prompt[None, :]}, device=self.device)
         self._stats["prefills"] += 1
-        full, part = self.cache["layers"].attn, cache1["layers"].attn
-        for f, p in ((full.k, part.k), (full.v, part.v)):
-            f[:, slot].zero_()
-            f[:, slot, :S] = p[:, 0].to(f.dtype)
+        for f, p in zip(leaves(self.cache), leaves(cache1)):
+            row = f[:, slot]
+            row.zero_()
+            row[(slice(None),) + tuple(slice(0, n) for n in p.shape[2:])] \
+                = p[:, 0].to(f.dtype)
         self.slot_req[slot] = req
         self.slot_pos[slot] = S
         tok = self._select_token(logits.float().cpu().numpy(), slot)
@@ -153,17 +157,23 @@ class ServeEngine:
 
     def _decode(self, tokens: np.ndarray, pos: int, mask: np.ndarray):
         """The decode step at ``pos`` for every slot; the cache rows outside
-        ``mask`` get their slot ``pos`` back."""
-        kv = self.cache["layers"].attn
+        ``mask`` get back what the step rewrote: K/V slot ``pos``, the SSM
+        state whole."""
+        lc = self.cache["layers"]
+        kv = [] if lc.attn is None else [lc.attn.k, lc.attn.v]
+        st = [] if lc.ssm is None else [lc.ssm.conv, lc.ssm.ssm]
         rest = np.flatnonzero(~mask)
         if rest.size:
             rows = torch.from_numpy(rest).to(self.device)
-            saved = (kv.k[:, rows, pos], kv.v[:, rows, pos])
+            saved_kv = [t[:, rows, pos] for t in kv]
+            saved_st = [t[:, rows] for t in st]
         logits, _ = self.model.decode_step(self.params, self.cache, tokens,
                                            pos, device=self.device)
         if rest.size:
-            kv.k[:, rows, pos] = saved[0]
-            kv.v[:, rows, pos] = saved[1]
+            for t, old in zip(kv, saved_kv):
+                t[:, rows, pos] = old
+            for t, old in zip(st, saved_st):
+                t[:, rows] = old
         return logits
 
     def _step(self):

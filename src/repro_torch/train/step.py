@@ -1,7 +1,8 @@
 """Train and serve step construction of the port (the reference's
 ``train/step.py`` for one device, ``mesh=None``).
 
-``make_train_step``: loss -> gradients (``torch.autograd.grad`` over the
+``make_train_step``: the family's loss (``Model.loss``; a batch carries
+``tokens`` and, for the enc-dec family, ``enc_frames``) -> gradients (``torch.autograd.grad`` over the
 parameter leaves; with ``microbatches > 1`` the microbatch gradients are
 summed in order and scaled by 1/nm, as the reference's ``lax.scan`` does)
 -> AdamW. The step updates the parameters and the optimizer state in
@@ -79,13 +80,13 @@ def make_train_step(cfg: ArchConfig, ocfg: OptimConfig,
         nm = tcfg.microbatches
         if nm <= 1:
             return _grads(model, params, batch, dev)
-        tokens = batch["tokens"]
-        b = len(tokens)
+        b = len(batch["tokens"])
         if b % nm:
             raise ValueError(f"batch of {b} rows in {nm} microbatches")
         acc, metrics = None, None
         for i in range(nm):
-            mb = {"tokens": tokens[i * (b // nm):(i + 1) * (b // nm)]}
+            mb = {k: v[i * (b // nm):(i + 1) * (b // nm)]
+                  for k, v in batch.items()}
             grads, metrics = _grads(model, params, mb, dev)
             g = leaves(grads, torch.is_tensor)
             if acc is None:

@@ -200,11 +200,19 @@ def test_cache_template_and_init_match_reference(tiny):
         torch.bfloat16
     with pytest.raises(NotImplementedError, match="A11"):
         t_lm.cache_template(t_cfg.replace(family="hybrid"), 1, 8)
-    for family in ("ssm", "vlm"):
+    for family in ("hybrid", "vlm"):
         with pytest.raises(NotImplementedError, match="A11"):
             Model(t_cfg.replace(family=family)).prefill(
                 t_params, {"tokens": np.ones((1, 3), np.int32)},
                 device="cpu")
+    # the ssm family's cache (ported) has the reference's leaves
+    ssm = get_tiny("mamba2_1_3b").replace(compute_dtype="float32")
+    r_ssm_tpl = RModel(r_get_tiny("mamba2_1_3b").replace(
+        compute_dtype="float32")).cache_template(3, 20)
+    t_ssm_tpl = Model(ssm).cache_template(3, 20)
+    assert t_ssm_tpl["layers"].attn is None
+    assert [(tuple(t.shape), t.dtype) for t in t_ssm_tpl["layers"].ssm] == [
+        (s.shape, torch.float32) for s in r_ssm_tpl["layers"].ssm]
 
 
 def test_decode_steps_match_reference(tiny):
