@@ -31,8 +31,8 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    p in {64, 128}, B = 64 with a zero-norm query and an all-zero code,
    bit for bit, and K5 at every code width (W = 1 to 8) and the edge
    shapes of ``K5_EDGE`` (B = 1, ragged query tiles, blk from 1 to past
-   n, codes off their 16-byte boundary); K7 (flash attention) on ``FLASH_CASES`` (G = 1 to 8, 3
-   and 96, ragged tiles, windows, decode rows, head dims 16 to 512 with
+   n, codes off their 16-byte boundary); K7 (flash attention) on ``FLASH_CASES`` (G = 1 to 8, 3,
+   5, 7 and 96, ragged tiles, windows, decode rows, head dims 16 to 512 with
    16, 20, 48, 112, 320 and 512 between and above the kernel's widths) in
    float32 and bf16 against its
    plain version in float32 (float32 within 2e-5, bf16 within
@@ -177,11 +177,12 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       ``max_restarts``, a resume from a checkpoint equal bit for bit to the
       uninterrupted run) and ``python -m repro_torch.launch.train --arch
       gemma_2b --tiny --steps 8``, checkpoints under a temporary directory.
-   h. Token serving with llama3-8b at full width and depth (32 layers,
-      d_model 4096, 32 q heads over 8 kv heads of 128, d_ff 14336, SwiGLU,
-      vocab 128,256, untied ``unembed``; random float32 parameters from
-      seed 0, 32.1 GB, bf16 compute), exactly as f: the same 16 requests'
-      lengths and engine settings, the same checks (K7 launched 32 x
+   h. Token serving with llama3-8b at full width, 16 of its 32 layers
+      (``LLAMA_SERVE_LAYERS``: the cut keeps the script near 600 s; d_model
+      4096, 32 q heads over 8 kv heads of 128, d_ff 14336, SwiGLU, vocab
+      128,256, untied ``unembed``; random float32 parameters from seed 0,
+      bf16 compute), exactly as f: the same 16 requests'
+      lengths and engine settings, the same checks (K7 launched 16 x
       (prefills + decode steps), the teacher-forced argmax, one at a time,
       the tiny CLI with ``--arch llama3_8b``) and the same prints, plus the
       phase's peak allocation.
@@ -219,10 +220,10 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       ``make_train_step`` steps of 8 x 128 tokens with their frames
       (remat "full" on the decoder: K7 4 + 2 x 2 x 4 times a step), losses
       finite and falling, ms a step, tokens/s and the peak.
-   m. mamba2-1.3b at full width and depth (48 layers, d_model 2048, 64
-      SSM heads of 64, state 128, vocab 50,280; 1.45 B float32 parameters
-      from seed 0, bf16 compute; no attention, so no kernel): token
-      serving exactly as f (16 requests in 8 slots, ``max_seq`` 256, the
+   m. mamba2-1.3b at full width (d_model 2048, 64 SSM heads of 64, state
+      128, vocab 50,280; float32 parameters from seed 0, bf16 compute; no
+      attention, so no kernel): token serving exactly as f at 24 of its 48
+      layers (``MAMBA_SERVE_LAYERS``, the cut as h's) (16 requests in 8 slots, ``max_seq`` 256, the
       teacher-forced, float32 and one-at-a-time checks, one profiled
       decode step, the tiny CLI), which holds the engine's masked restore
       of the SSM state; then ``python -m repro_torch.launch.train --arch
@@ -232,10 +233,39 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       see ``mamba_train_path``): the summary line, losses finite and
       falling, ms a step from the trainer's history, tokens/s, ``mfu`` and
       the peak.
+   n. hymba-1.5b at full width and depth (32 layers, d_model 1600, 25 q
+      heads over 5 kv heads of 64 beside 25 SSM heads of 64 with state 16,
+      d_ff 5504, vocab 32,001, sliding window 2,048; 1.39 B float32
+      parameters from seed 0, bf16 compute): (a) token serving exactly as
+      f (the K/V cache a ring of min(256, 2,048) slots); (b) the ring set
+      (``hymba_path``): 8 prompts of 2,000 tokens, 128 new tokens each,
+      ``max_seq`` 2,176, so the ring of 2,048 slots wraps at the 48th
+      step and K7 decodes with ``valid_len`` 2,048; every token the
+      argmax of the teacher-forced forward over the 2,127 positions (K7
+      with the window) where its margin exceeds ``TIE_FACTOR`` x the gap,
+      in bf16 and in float32 compute; one profiled decode step on the
+      wrapped ring (no tiny CLI in a process of its own, which f, h and m
+      run); (c) ``make_train_step``: 8 steps of 8 x 128 tokens
+      (as g (b)), then 2 of 2 x 4,096 (the window bites in K7's forward
+      and in its gradient's recompute), losses finite and falling.
+   o. The MoE family at full width, 2 layers each (the cut: depth and
+      traffic; bf16 parameters drawn on the card from seed 0): arctic-480b
+      (128 experts top-2 with the dense residual FFN, G = 7, D = 128;
+      27.7 B parameters, 55.4 GB) and then kimi-k2 (its dense front layer
+      and one MoE layer of 384 experts top-8 with the shared expert, G =
+      8, D = 112, vocab 163,840; 19.6 B, 39.3 GB): ``ServeEngine`` with 8
+      slots, 8 requests of 19-123 tokens, 16 new tokens each, K7 launched
+      2 x (prefills + decode steps); 2 requests held against the causal
+      forward (argmax and margin, bf16); one ``loss`` forward on 8 x 128
+      tokens under ``no_grad`` (ce, ``moe_lb``, ``moe_rz``,
+      ``dropped_fraction``); one profiled decode step against the bytes
+      bound of every weight read once (C = T = 8 runs every expert).
+      Training the MoE family at full width needs several cards.
    Every kernel launch counter is set to 0 just before each path (a, d,
    b) at each p, and before c, f, g's 8 steps, h, i's steps, each model
-   of j, each example of k, l's generation and its 8 steps, and m's
-   serving and training, and read just after it; K2 launches count by
+   of j, each example of k, l's generation and its 8 steps, m's serving
+   and training, n's serving, ring set and training, and each model of
+   o, and read just after it; K2 launches count by
    form (grid, cluster), K3 by kernel (fused, map), and on path a also by
    wrapper and query rows;
 4. each kernel against its plain version again, on operands captured from
@@ -255,11 +285,13 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    prefill and decode calls (G = 48) and at l's encoder self-attention
    (q = k = (8, 1500, 6, 64)), cross-attention (q (8, 16, 6, 64) against
    (8, 1500, 6, 64)) and cross-attention decode (q (8, 1, 6, 64),
-   ``valid_len`` 1,500), each
-   also beside
+   ``valid_len`` 1,500), at n's windowed forward (q (8, 2127, 25, 64),
+   window 2,048), ring decode (q (8, 1, 25, 64) against (8, 2048, 5, 64),
+   ``valid_len`` 2,048) and 4,096-token training call, and at o's
+   arctic and kimi prefill and decode calls, each also beside
    ``scaled_dot_product_attention`` on the same tensors and valid keys
-   (its ``library_ms``, c's call in the ``kernels`` record; the port never
-   calls it).
+   (with a window, under the same boolean mask; its ``library_ms``, c's
+   call in the ``kernels`` record; the port never calls it).
 
 Every time is printed with the card's name and power limit. The last two
 lines are the ``kernels`` JSON record and ``{"ok": true, "device": ...}``.
@@ -1722,8 +1754,10 @@ FP32_FLOPS = 67e12
 # 160}, ragged Sq and Sk (100, 130, 160), D in {32, 64, 128, 256} and
 # between them (the reference configs' tiny 16, 48, kimi-k2's 112, and 20,
 # which the bf16 path pads to 24 for TMA), D = 320 and 512 above them
-# (256-column chunks and output slices), G in {1, 2, 3, 4, 8, 96} (G = 3:
-# 64-row tiles that straddle a head group; G = 96: two head tiles)
+# (256-column chunks and output slices), G in {1, 2, 3, 4, 5, 7, 8, 96}
+# (G = 3: 64-row tiles that straddle a head group; G = 5 and 7, hymba's
+# and arctic's: tiles of 60 and 63 live rows, windowed causal and with
+# valid_len; G = 96: two head tiles)
 FLASH_CASES = [
     (2, 128, 128, 8, 8, 64, True, 0, None),
     (2, 128, 128, 8, 2, 128, False, 0, None),
@@ -1750,6 +1784,10 @@ FLASH_CASES = [
     (2, 1, 160, 4, 1, 512, False, 0, 37),
     (2, 100, 100, 96, 1, 64, True, 0, None),
     (1, 4, 160, 96, 1, 256, False, 16, 100),
+    (2, 160, 160, 10, 2, 64, True, 64, None),
+    (2, 1, 160, 5, 1, 64, False, 0, 100),
+    (2, 130, 130, 14, 2, 128, True, 24, None),
+    (2, 1, 160, 7, 1, 128, False, 0, 160),
 ]
 
 
@@ -1881,15 +1919,25 @@ def check_flash_call(fa, a, kw, reps=20):
     torch.cuda.synchronize()
     entry["plain_ms"] = (time.perf_counter() - t0) * 1e3
     vl = kw.get("valid_len")
-    if kw.get("window", 0) or (vl is not None and kw.get("causal")):
+    window = kw.get("window", 0)
+    if vl is not None and (window or kw.get("causal")):
         raise AssertionError("the library yardstick takes no window and no "
-                             "causal valid_len")
+                             "causal mask beside valid_len")
     kv = (k, v) if vl is None else (k[:, :vl], v[:, :vl])
+    mask = None
+    if window:
+        # a sliding window: SDPA with the same (Sq, Sk) boolean mask
+        qp = torch.arange(q.shape[1], device=q.device)[:, None]
+        kp = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = qp - kp < window
+        if kw.get("causal"):
+            mask &= qp >= kp
 
     def sdpa():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2),
-            is_causal=bool(kw.get("causal")), enable_gqa=True)
+            attn_mask=mask, is_causal=mask is None and bool(kw.get("causal")),
+            enable_gqa=True)
 
     lib = sdpa().transpose(1, 2)
     entry["library_diff"] = float((lib.float() - plain.float()).abs().max())
@@ -2169,11 +2217,12 @@ def top2_margin(row):
     return float(b - a)
 
 
-def _k7_capture(fa, calls, kinds=None):
+def _k7_capture(fa, calls, kinds=None, counts=None):
     """A stand-in for ``models.layers.flash_attention`` that keeps copies
     of the operands of the decode call with the most valid keys, the
     longest prefill, and (``kinds`` = {"train"}) the first call, then
-    calls K7 as the layer would."""
+    calls K7 as the layer would; ``counts`` (a dict) tallies the calls by
+    kind."""
 
     def capture(q, k, v, **kw):
         if kinds and "train" in kinds:
@@ -2181,6 +2230,8 @@ def _k7_capture(fa, calls, kinds=None):
         else:
             kind = "prefill" if kw.get("valid_len") is None else "decode"
             size = q.shape[1] if kind == "prefill" else kw["valid_len"]
+        if counts is not None:
+            counts[kind] = counts.get(kind, 0) + 1
         if size > calls.get(kind, (0,))[0]:
             calls[kind] = (size, tuple(t.detach().clone() for t in (q, k, v)),
                            dict(kw))
@@ -2189,12 +2240,15 @@ def _k7_capture(fa, calls, kinds=None):
     return capture
 
 
-def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f"):
-    """Phase 3f (gemma-2b), 3h (llama3-8b) or 3m (mamba2-1.3b): token
+def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f",
+               layers=None, cli=True):
+    """Phase 3f (gemma-2b), 3h (llama3-8b), 3m (mamba2-1.3b) or 3n (a)
+    (hymba-1.5b, its K/V cache a ring of min(max_seq, 2,048) slots): token
     serving at the architecture's full width and depth through
-    ``ServeEngine`` (see the module docstring). Returns its measurements
-    and K7's main-path decode and prefill calls (none for the SSM, which
-    runs no attention)."""
+    ``ServeEngine`` (see the module docstring); ``layers`` cuts the depth,
+    and ``cli`` runs the tiny CLI in a process of its own at the end.
+    Returns its measurements and K7's main-path decode and prefill calls
+    (none for the SSM, which runs no attention)."""
     import numpy as np
     import torch
 
@@ -2206,6 +2260,8 @@ def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f"):
 
     t_phase = time.perf_counter()
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     model = Model(cfg)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()      # what earlier phases keep
@@ -2213,8 +2269,9 @@ def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f"):
     t0 = time.perf_counter()
     params = model.init_params(SEED, device=dev)
     torch.cuda.synchronize()
-    log(f"  {cfg.name} at full width and depth ({cfg.n_layers} layers, "
-        f"{cfg.param_count():,} float32 parameters), random weights from "
+    log(f"  {cfg.name} at full width, {cfg.n_layers} of "
+        f"{get_config(arch).n_layers} layers ({cfg.param_count():,} float32 "
+        f"parameters), random weights from "
         f"seed {SEED}: init "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
@@ -2447,13 +2504,15 @@ def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f"):
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          arch, "--tiny", "--requests", "4"],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    if out.returncode:
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))) if cli else None
+    if out and out.returncode:
         raise AssertionError(f"python -m repro_torch.launch.serve --tiny "
                              f"exited {out.returncode}: {out.stderr[-2000:]}")
-    log(f"  python -m repro_torch.launch.serve --arch {arch} --tiny "
-        f"--requests 4 on the card: {out.stdout.strip()} "
-        f"({time.perf_counter() - t0:.1f} s with the interpreter's start)")
+    if out:
+        log(f"  python -m repro_torch.launch.serve --arch {arch} --tiny "
+            f"--requests 4 on the card: {out.stdout.strip()} "
+            f"({time.perf_counter() - t0:.1f} s with the interpreter's "
+            f"start)")
     del eng, params, head
     res["peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
     res["phase_s"] = time.perf_counter() - t_phase
@@ -2801,6 +2860,8 @@ def train_path(dev, tag, zero_counts):
 
 # ------------------------------------------------- the swiglu dense family
 LLAMA_TRAIN_LAYERS = 8          # llama3-8b's training depth on one card
+LLAMA_SERVE_LAYERS = 16         # llama3-8b's serving depth (3h; of 32)
+MAMBA_SERVE_LAYERS = 24         # mamba2-1.3b's serving depth (3m; of 48)
 GRANITE_LAYERS = 4              # granite-3-8b's and granite-34b's depth
 GRANITE_SERVE = dict(max_batch=8, max_seq=256, max_new_tokens=9)
 GRANITE_PROMPT = 96             # tokens of the one granite request
@@ -3413,6 +3474,582 @@ def mamba_train_path(dev, tag, zero_counts):
     return res
 
 
+# ------------------------------------------- hymba-1.5b and the MoE family
+RING_PROMPT = 2000              # tokens of each ring-wrap prompt
+RING_SERVE = dict(max_batch=8, max_seq=2176, max_new_tokens=128)
+RING_CHECKED = 2                # requests served again in float32 compute
+HYMBA_LONG = dict(seq_len=4096, global_batch=2)   # steps past the window
+HYMBA_LONG_STEPS = 2
+MOE_LAYERS = 2                  # arctic's and kimi's depth on one card
+MOE_SERVE = dict(max_batch=8, max_seq=160, max_new_tokens=16)
+MOE_PROMPTS = (19, 123)         # prompt lengths, evenly spread
+
+
+def _engine_probe(eng, rows, prefill_ms, step_ms):
+    """Record every logits row the engine chooses a token from, by
+    request, and host-clock ms of each prefill (by prompt length) and each
+    decode step (by group size)."""
+    import numpy as np
+
+    prefill, step, decode = (eng._prefill_into_slot, eng._step,
+                             eng._decode)
+    choose = eng._select_token
+    group = [0]
+
+    def select(row, slot):
+        rows.setdefault(eng.slot_req[slot].rid, []).append(
+            np.array(row).reshape(-1))
+        return choose(row, slot)
+
+    def timed_prefill(slot, req):
+        t0 = time.perf_counter()
+        prefill(slot, req)
+        prefill_ms.append((len(req.prompt), (time.perf_counter() - t0) * 1e3))
+
+    def counted_decode(tokens, pos, mask):
+        group[0] = int(mask.sum())
+        return decode(tokens, pos, mask)
+
+    def timed_step():
+        group[0] = 0
+        t0 = time.perf_counter()
+        step()
+        if group[0]:
+            step_ms.append((group[0], (time.perf_counter() - t0) * 1e3))
+
+    eng._select_token = select
+    eng._prefill_into_slot = timed_prefill
+    eng._decode = counted_decode
+    eng._step = timed_step
+
+
+def teacher_forced_batch(model, params, prompts, served, rows, bound, dev):
+    """``teacher_forced`` for requests whose prompts have one length, in
+    one causal forward over all of them (B = len(prompts)). Returns (gap,
+    scale, margin-limited tokens)."""
+    import numpy as np
+    import torch
+
+    n = len(prompts[0])
+    seqs = np.stack([np.concatenate([p, served[i][:-1]])
+                     for i, p in enumerate(prompts)])
+    with torch.no_grad():
+        logits, _ = model.forward(params, {"tokens": seqs}, device=dev)
+        f = logits[:, n - 1:].cpu().numpy()
+        del logits
+    gap = max(float(np.abs(np.stack(rows[i]) - f[i]).max())
+              for i in range(len(prompts)))
+    scale = float(np.abs(f).max())
+    if not gap <= bound * scale:
+        raise AssertionError(f"{model.cfg.name} ({model.cfg.compute_dtype}): "
+                             f"decode logits differ from the causal "
+                             f"forward's by {gap} (largest logit {scale})")
+    limited = 0
+    for i in range(len(prompts)):
+        for j, tok in enumerate(served[i]):
+            if top2_margin(f[i, j]) <= TIE_FACTOR * gap:
+                limited += 1
+            elif tok != int(np.argmax(f[i, j])):
+                raise AssertionError(f"{model.cfg.name} request {i} token "
+                                     f"{j}: {tok}, the forward's argmax "
+                                     f"{int(np.argmax(f[i, j]))}")
+    return gap, scale, limited
+
+
+def hymba_path(dev, tag, zero_counts):
+    """Phase 3n (b) and (c): hymba-1.5b at full width and depth past its
+    sliding window. (b) 8 prompts of ``RING_PROMPT`` tokens and 128 new
+    tokens each through ``ServeEngine`` (``RING_SERVE``: a ring of 2,048
+    K/V slots that wraps at the 48th decode step), every token the
+    teacher-forced forward's argmax over the 2,127 positions (K7 with the
+    window) where its margin exceeds ``TIE_FACTOR`` x the gap, in bf16 and
+    again in float32 compute for ``RING_CHECKED`` requests; one profiled
+    decode step on the wrapped ring. (c) ``make_train_step``: 8 steps of
+    8 x 128 tokens, then ``HYMBA_LONG_STEPS`` of 2 x 4,096 tokens (the
+    window bites in K7's forward and in its gradient's recompute), losses
+    finite and falling. Returns its measurements, K7's calls (the ring
+    decode, the windowed forward, the long training step) and K7's
+    launches by kind."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    from repro_torch.models import Model
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.optim import OptimConfig
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.train import TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config("hymba_1_5b")
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(SEED, device=dev)
+    rng = np.random.default_rng(SEED + 2)
+    topics = rng.integers(1, cfg.vocab_size, (N_TOPICS, TOPIC_VOCAB))
+    B = RING_SERVE["max_batch"]
+    prompts = [topics[t][rng.integers(0, TOPIC_VOCAB, RING_PROMPT)]
+               for t in rng.integers(0, N_TOPICS, B)]
+    calls, counts, res = {}, {}, {}
+
+    # (b) the ring-wrap set
+    eng = ServeEngine(cfg, params, ServeConfig(**RING_SERVE, device=dev))
+    kv_len = eng.cache["layers"].attn.k.shape[2]
+    if kv_len != cfg.sliding_window:
+        raise AssertionError(f"hymba's K/V cache holds {kv_len} slots")
+    rows, prefill_ms, step_ms = {}, [], []
+    _engine_probe(eng, rows, prefill_ms, step_ms)
+    zero_counts()
+    layers_mod.flash_attention = _k7_capture(fa, calls, counts=counts)
+    try:
+        for pr in prompts:
+            eng.submit(pr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = eng.run_until_drained()
+        wall = time.perf_counter() - t0
+    finally:
+        layers_mod.flash_attention = fa.flash_attention
+    st = eng.stats
+    k7 = fa.LAUNCHES["flash_attention"]
+    if k7 != cfg.n_layers * (st["prefills"] + st["decode_steps"]) or any(
+            len(served[i]) != RING_SERVE["max_new_tokens"] for i in range(B)):
+        raise AssertionError(f"ring set: {k7} K7 launches, {st}")
+    if calls["decode"][2]["valid_len"] != kv_len:
+        raise AssertionError(f"the ring decode ran K7 over "
+                             f"{calls['decode'][2]['valid_len']} slots")
+    wrap = kv_len - RING_PROMPT
+    res.update(ring_launches=k7, ring_wall_s=wall,
+               ring_tokens_s=st["tokens_out"] / wall,
+               ring_step_ms=statistics.median(ms for _, ms in step_ms),
+               ring_step_ms_wrapped=statistics.median(
+                   ms for _, ms in step_ms[wrap:]),
+               ring_prefill_ms=statistics.median(ms for _, ms in prefill_ms),
+               **{f"ring_{k}": v for k, v in st.items()})
+    log(f"  ring set: {B} prompts of {RING_PROMPT} tokens, "
+        f"{RING_SERVE['max_new_tokens']} new tokens each, {RING_SERVE}: "
+        f"{st['tokens_out']} tokens in {wall:.2f} s, "
+        f"{res['ring_tokens_s']:.1f} tokens/s; {st['prefills']} prefills "
+        f"(median {res['ring_prefill_ms']:.2f} ms at B = 1), "
+        f"{st['decode_steps']} decode steps (median {res['ring_step_ms']:.3f}"
+        f" ms, {res['ring_step_ms_wrapped']:.3f} ms after the ring wrapped "
+        f"at step {wrap}); K7 launches {k7} = {cfg.n_layers} x "
+        f"({st['prefills']} + {st['decode_steps']}), the ring decode at "
+        f"valid_len {kv_len} {tag}")
+
+    # the tokens against the teacher-forced windowed forward (K7's call
+    # at B = 8 over the 2,127 positions kept for phase 4)
+    fwd_calls, fwd_counts = {}, {}
+    layers_mod.flash_attention = _k7_capture(fa, fwd_calls, {"train"},
+                                             counts=fwd_counts)
+    try:
+        gap, scale, limited = teacher_forced_batch(
+            model, params, prompts, served, rows, GAP_BOUND, dev)
+    finally:
+        layers_mod.flash_attention = fa.flash_attention
+    calls["window"] = fwd_calls["train"]
+    n_tf = B * RING_SERVE["max_new_tokens"]
+    res.update(ring_gap=gap, ring_scale=scale, ring_limited=limited)
+    log(f"  ring set teacher-forced ({B} requests, {n_tf} tokens, the "
+        f"forward over {RING_PROMPT + RING_SERVE['max_new_tokens'] - 1} "
+        f"positions with window {cfg.sliding_window}): decode logits within "
+        f"{gap:.4g} of the forward's (largest logit {scale:.4g}; bound "
+        f"{GAP_BOUND * scale:.4g}); every token the forward's argmax, "
+        f"{limited}/{n_tf} steps margin-limited")
+    f32 = Model(cfg.replace(compute_dtype="float32"))
+    eng32 = ServeEngine(f32.cfg, params, ServeConfig(**RING_SERVE,
+                                                     device=dev))
+    rows32 = {}
+    _engine_probe(eng32, rows32, [], [])
+    for pr in prompts[:RING_CHECKED]:
+        eng32.submit(pr)
+    served32 = eng32.run_until_drained()
+    del eng32
+    gap32, scale32, limited32 = teacher_forced_batch(
+        f32, params, prompts[:RING_CHECKED], served32, rows32,
+        GAP_BOUND_F32, dev)
+    res.update(ring_gap32=gap32, ring_limited32=limited32)
+    n32 = RING_CHECKED * RING_SERVE["max_new_tokens"]
+    log(f"  ring set in float32 compute ({RING_CHECKED} requests, {n32} "
+        f"tokens): decode logits within {gap32:.4g} of the float32 forward's "
+        f"(largest logit {scale32:.4g}; bound {GAP_BOUND_F32 * scale32:.4g}); "
+        f"every token the forward's argmax, {limited32}/{n32} steps "
+        f"margin-limited")
+
+    # one profiled decode step of 8 rows on the wrapped ring
+    saved = dict(fa.LAUNCHES)
+    toks = np.array([[served[i][-1]] for i in range(B)], np.int32)
+    every = np.ones(B, bool)
+    with torch.no_grad():
+        prof = profile_batch(
+            lambda: eng._decode(toks, RING_SERVE["max_seq"] - 8,
+                                every).float().cpu(),
+            "decode_hymba_1_5b_ring_B8", ROOT / "chiprun_out",
+            expect=("flash_attention",))
+    fa.LAUNCHES.update(saved)
+
+    def card_ms(words):
+        return sum(dt for dt, _, key in prof
+                   if any(w in key.lower() for w in words))
+
+    res.update(ring_prof_k7=card_ms(("flash_attention",)),
+               ring_prof_gemm=card_ms(("gemm", "gemv", "nvjet", "xmma",
+                                       "cutlass", "cublas", "splitk")),
+               ring_prof_copy=card_ms(("copy",)),
+               ring_prof_busy=sum(dt for dt, _, _ in prof),
+               ring_prof_kernels=sum(c for _, c, _ in prof))
+    log(f"  one decode step at B = {B} on the wrapped ring: K7 "
+        f"{res['ring_prof_k7']:.4f} ms ({cfg.n_layers} launches), GEMMs "
+        f"{res['ring_prof_gemm']:.4f} ms, copies {res['ring_prof_copy']:.4f} "
+        f"ms, of {res['ring_prof_busy']:.4f} ms card busy in "
+        f"{res['ring_prof_kernels']} kernels {tag}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) training: 8 steps of 8 x 128, then 2 of 2 x 4,096 tokens
+    data = dict(TRAIN_DATA, vocab_size=cfg.vocab_size)
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1,
+                       decay_steps=TRAIN_STEPS + HYMBA_LONG_STEPS)
+    built = make_train_step(cfg, ocfg, TrainConfig(), device=dev)
+    params, opt = built["init"](SEED)
+    losses, step_ms = [], []
+    zero_counts()
+    params, opt = _train_steps(built, params, opt,
+                               TokenPipeline(DataConfig(**data)), TRAIN_STEPS,
+                               0, fa, cfg.n_layers, losses, step_ms)
+    res.update(train=_steps_report(
+        losses, step_ms, fa.LAUNCHES["flash_attention"], cfg.n_layers,
+        cfg.param_count(), data["global_batch"], data["seq_len"], held, tag))
+    long_losses, long_ms, long_calls, long_counts = [], [], {}, {}
+    layers_mod.flash_attention = _k7_capture(fa, long_calls, {"train"},
+                                             counts=long_counts)
+    try:
+        params, opt = _train_steps(
+            built, params, opt,
+            TokenPipeline(DataConfig(**dict(data, **HYMBA_LONG))),
+            HYMBA_LONG_STEPS, 0, fa, cfg.n_layers, long_losses, long_ms)
+    finally:
+        layers_mod.flash_attention = fa.flash_attention
+    if not all(np.isfinite(long_losses)) or not max(long_losses) < losses[0]:
+        raise AssertionError(f"hymba's 4,096-token losses {long_losses} "
+                             f"(first step {losses[0]})")
+    calls["train"] = long_calls["train"]
+    long_tokens = HYMBA_LONG["seq_len"] * HYMBA_LONG["global_batch"]
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    res.update(long_losses=long_losses, long_ms=long_ms,
+               long_tokens_s=long_tokens / (statistics.median(long_ms) / 1e3),
+               train_launches=fa.LAUNCHES["flash_attention"],
+               peak_gb=peak)
+    log(f"  then {HYMBA_LONG_STEPS} steps of {HYMBA_LONG['global_batch']} x "
+        f"{HYMBA_LONG['seq_len']} tokens (window {cfg.sliding_window} in K7's "
+        f"forward and its gradient's recompute): losses "
+        + ", ".join(f"{x:.4f}" for x in long_losses) + "; ms "
+        + ", ".join(f"{x:.1f}" for x in long_ms)
+        + f", {res['long_tokens_s']:,.0f} tokens/s at the last; peak of the "
+        f"phase {peak:.2f} GB besides {held / 1e9:.2f} GB {tag}")
+    del params, opt, built
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["by_kind"] = dict(counts, window=fwd_counts["train"],
+                          train=long_counts["train"])
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 3n (ring set and training): {res['phase_s']:.1f} s; K7 "
+        f"launches by kind {res['by_kind']} (window: the teacher-forced "
+        f"forward; train: the {HYMBA_LONG['seq_len']}-token steps, forward "
+        f"and recompute)")
+    return res, {k: (a, kw) for k, (_, a, kw) in calls.items()}
+
+
+def _weight_bytes(params):
+    """Bytes of every parameter leaf but the embedding (a decode step
+    gathers 8 of its rows, not all of it)."""
+    from repro_torch.tree import leaves_with_path
+
+    return sum(t.numel() * t.element_size()
+               for path, t in leaves_with_path(params) if path[0] != "embed")
+
+
+def _route_recorder(route, ctx, routes):
+    """A stand-in for ``models.moe.route`` that, while ``ctx[0]`` names a
+    context, appends each call's experts (sorted a token) to ``routes``
+    as (context, [one (T, k) tensor a MoE layer]); a context's calls are
+    its MoE layers in order. The tensors stay on the card."""
+    import torch
+
+    def recorded(x, router, top_k):
+        out = route(x, router, top_k)
+        if ctx[0] is not None:
+            experts = torch.sort(out[3], dim=-1).values
+            if routes and routes[-1][0] is ctx[0]:
+                routes[-1][1].append(experts)
+            else:
+                routes.append((ctx[0], [experts]))
+        return out
+
+    return recorded
+
+
+def _engine_routes(routes, rid, n_prompt):
+    """Request ``rid``'s experts a MoE layer, (positions, k), as the
+    engine routed them: its prefill, then its row of each decode step."""
+    import torch
+
+    pre = next(ts for c, ts in routes if c == ("prefill", rid))
+    steps = sorted((c[1], ts, c[2][rid]) for c, ts in routes
+                   if c[0] == "decode" and rid in c[2])
+    if [pos for pos, _, _ in steps] != list(range(n_prompt,
+                                                  n_prompt + len(steps))):
+        raise AssertionError(f"request {rid}'s decode positions "
+                             f"{[pos for pos, _, _ in steps]}")
+    return [torch.cat([pre[i]] + [ts[i][slot:slot + 1]
+                                  for _, ts, slot in steps]).cpu()
+            for i in range(len(pre))]
+
+
+def moe_teacher_forced(model, params, prompt, toks, rows, eng_routes,
+                       record, dev):
+    """``teacher_forced`` for a MoE model, up to the first position whose
+    experts the engine and the causal forward chose differently: top-k
+    routing is discontinuous, and bf16 operands of other GEMM shapes can
+    flip a near-tie choice, after which that token's layer output (and
+    every later position's attention to it) legitimately differs. Before
+    that position the decode logits must lie within ``GAP_BOUND`` x the
+    largest forward logit, and each token be the forward's argmax where
+    its margin exceeds ``TIE_FACTOR`` x the gap. ``record`` = (ctx,
+    routes) of ``_route_recorder``. Returns (gap, scale, margin-limited
+    tokens, tokens held, first differing position or None)."""
+    import numpy as np
+    import torch
+
+    ctx, routes = record
+    seq = np.concatenate([prompt, toks[:-1]])
+    ctx[0] = ("forward",)
+    try:
+        with torch.no_grad():
+            logits, _ = model.forward(params, {"tokens": seq[None]},
+                                      device=dev)
+            f = logits[0, len(prompt) - 1:].cpu().numpy()
+            del logits
+    finally:
+        ctx[0] = None
+    fwd = [t.cpu() for t in routes.pop()[1]]
+    flip = None
+    for a, b in zip(eng_routes, fwd):
+        if a.shape != b.shape:
+            raise AssertionError(f"routes over {a.shape} and {b.shape}")
+        bad = (a != b).any(dim=-1).nonzero()
+        if len(bad):
+            flip = int(bad[0]) if flip is None else min(flip, int(bad[0]))
+    # logits row j is position len(prompt) - 1 + j
+    held = len(toks) if flip is None else max(0, flip - len(prompt) + 1)
+    scale = float(np.abs(f).max())
+    if not held:
+        return 0.0, scale, 0, 0, flip
+    gap = float(np.abs(np.stack(rows[:held]) - f[:held]).max())
+    if not gap <= GAP_BOUND * scale:
+        raise AssertionError(f"{model.cfg.name}: decode logits differ from "
+                             f"the causal forward's by {gap} (largest logit "
+                             f"{scale}) before any expert choice differs")
+    limited = 0
+    for j in range(held):
+        if top2_margin(f[j]) <= TIE_FACTOR * gap:
+            limited += 1
+        elif toks[j] != int(np.argmax(f[j])):
+            raise AssertionError(f"{model.cfg.name} token {j}: {toks[j]}, "
+                                 f"the forward's argmax {int(np.argmax(f[j]))}")
+    return gap, scale, limited, held, flip
+
+
+def moe_one(arch, dev, tag, zero_counts):
+    """Phase 3o for one MoE config at full width and ``MOE_LAYERS``
+    layers (kimi's: its dense front layer and one MoE layer): random bf16
+    parameters from seed 0 drawn on the card; ``ServeEngine`` with 8
+    slots, 8 requests of 19-123 tokens, 16 new tokens each, K7 launched
+    ``MOE_LAYERS`` x (prefills + decode steps); every request held
+    against the causal forward (argmax and margin) up to the first
+    position whose experts the engine and the forward chose differently
+    (``moe_teacher_forced``); one ``loss`` forward on 8 x 128 tokens under
+    ``no_grad`` (ce and the MoE terms); one profiled decode step of 8 rows
+    against the bytes bound of reading every weight once. Returns its
+    measurements and K7's calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    from repro_torch.models import Model
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch).replace(n_layers=MOE_LAYERS)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = _weight_bytes(params)
+    log(f"  {cfg.name} at full width, {MOE_LAYERS} of "
+        f"{get_config(arch).n_layers} layers (first_k_dense "
+        f"{cfg.first_k_dense}, {cfg.n_experts} experts top-"
+        f"{cfg.experts_per_token}, G = {cfg.n_heads // cfg.n_kv_heads}, D = "
+        f"{cfg.head_dim_}): {cfg.param_count():,} {cfg.param_dtype} "
+        f"parameters ({cfg.active_param_count():,} active a token), drawn "
+        f"on the card from seed {SEED} in {init_s:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated {tag}")
+    rng = np.random.default_rng(SEED + 3)
+    topics = rng.integers(1, cfg.vocab_size, (N_TOPICS, TOPIC_VOCAB))
+    B = MOE_SERVE["max_batch"]
+    lens = np.linspace(*MOE_PROMPTS, B).astype(int)
+    prompts = [topics[t][rng.integers(0, TOPIC_VOCAB, n)]
+               for t, n in zip(rng.integers(0, N_TOPICS, B), lens)]
+    calls, counts = {}, {}
+    eng = ServeEngine(cfg, params, ServeConfig(**MOE_SERVE, device=dev))
+    rows, prefill_ms, step_ms = {}, [], []
+    _engine_probe(eng, rows, prefill_ms, step_ms)
+    # each route call's experts, by the requests its rows served
+    ctx, routes = [None], []
+    prefill, decode = eng._prefill_into_slot, eng._decode
+
+    def prefill_routed(slot, req):
+        ctx[0] = ("prefill", req.rid)
+        try:
+            prefill(slot, req)
+        finally:
+            ctx[0] = None
+
+    def decode_routed(tokens, pos, mask):
+        ctx[0] = ("decode", pos, {eng.slot_req[i].rid: int(i)
+                                  for i in np.flatnonzero(mask)})
+        try:
+            return decode(tokens, pos, mask)
+        finally:
+            ctx[0] = None
+
+    eng._prefill_into_slot, eng._decode = prefill_routed, decode_routed
+    route = moe_mod.route
+    moe_mod.route = _route_recorder(route, ctx, routes)
+    try:
+        zero_counts()
+        layers_mod.flash_attention = _k7_capture(fa, calls, counts=counts)
+        try:
+            for pr in prompts:
+                eng.submit(pr)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served = eng.run_until_drained()
+            wall = time.perf_counter() - t0
+        finally:
+            layers_mod.flash_attention = fa.flash_attention
+        st = eng.stats
+        k7 = fa.LAUNCHES["flash_attention"]
+        if k7 != cfg.n_layers * (st["prefills"] + st["decode_steps"]) or any(
+                len(served[i]) != MOE_SERVE["max_new_tokens"]
+                for i in range(B)):
+            raise AssertionError(f"{cfg.name}: {k7} K7 launches, {st}")
+        checked = [moe_teacher_forced(
+            model, params, prompts[rid], served[rid], rows[rid],
+            _engine_routes(routes, rid, len(prompts[rid])), (ctx, routes),
+            dev) for rid in range(B)]
+    finally:
+        moe_mod.route = route
+        eng._prefill_into_slot, eng._decode = prefill, decode
+    del routes
+    groups = [g for g, _ in step_ms]
+    big = max(groups)
+    res = dict(launches=k7, wall_s=wall, tokens_s=st["tokens_out"] / wall,
+               step_ms=statistics.median(ms for _, ms in step_ms),
+               step_ms_big=statistics.median(ms for g, ms in step_ms
+                                             if g == big), group_big=big,
+               prefill_ms=sorted(prefill_ms), init_s=init_s,
+               G=cfg.n_heads // cfg.n_kv_heads, **st)
+    log(f"  served {B} greedy requests (prompts {min(lens)}-{max(lens)} "
+        f"tokens, {MOE_SERVE}) in {wall:.2f} s: {st['tokens_out']} tokens, "
+        f"{res['tokens_s']:.1f} tokens/s; {st['prefills']} prefills, "
+        f"{st['decode_steps']} decode steps (median {res['step_ms']:.3f} ms, "
+        f"{res['step_ms_big']:.3f} ms at {big} rows); K7 launches {k7} = "
+        f"{cfg.n_layers} x ({st['prefills']} + {st['decode_steps']}) {tag}")
+    log("  prefill ms by prompt length (host clock, B = 1): " + ", ".join(
+        f"{n}: {ms:.2f}" for n, ms in res["prefill_ms"]) + f" {tag}")
+    gap = max(c[0] for c in checked)
+    scale = max(c[1] for c in checked)
+    limited = sum(c[2] for c in checked)
+    held = sum(c[3] for c in checked)
+    flips = [c[4] - len(prompts[i]) if c[4] is not None else None
+             for i, c in enumerate(checked)]
+    n_tf = B * MOE_SERVE["max_new_tokens"]
+    res.update(gap=gap, scale=scale, limited=limited, held=held, flips=flips)
+    log(f"  teacher-forced ({B} requests, {n_tf} tokens): "
+        f"{held} tokens held, up to each request's first position whose "
+        f"experts the engine and the forward chose differently (by request, "
+        f"relative to the prompt's end; None: none differs): {flips}; decode "
+        f"logits within {gap:.4g} of the causal forward's there (largest "
+        f"logit {scale:.4g}; bound {GAP_BOUND * scale:.4g}); every held "
+        f"token the forward's argmax, {limited}/{held} margin-limited")
+
+    # one loss forward on 8 x 128 tokens
+    batch = TokenPipeline(DataConfig(**dict(
+        TRAIN_DATA, vocab_size=cfg.vocab_size))).global_batch_at(0)
+    saved = dict(fa.LAUNCHES)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = model.loss(params, batch, device=dev)
+        m = {k: float(v) for k, v in m.items()}
+        loss_ms = (time.perf_counter() - t0) * 1e3
+    fa.LAUNCHES.update(saved)
+    if not all(np.isfinite(list(m.values()))) or not {
+            "moe_lb", "moe_rz", "dropped_fraction"} <= set(m):
+        raise AssertionError(f"{cfg.name} loss metrics {m}")
+    res.update(loss=m, loss_ms=loss_ms)
+    log(f"  loss forward on 8 x 128 tokens (no_grad, host clock "
+        f"{loss_ms:.1f} ms): " + ", ".join(f"{k} {v:.6g}"
+                                          for k, v in sorted(m.items()))
+        + f" {tag}")
+
+    # one profiled decode step, all 8 rows at one position
+    toks = np.array([[served[i][-1]] for i in range(B)], np.int32)
+    every = np.ones(B, bool)
+    saved = dict(fa.LAUNCHES)
+    with torch.no_grad():
+        prof = profile_batch(
+            lambda: eng._decode(toks, MOE_SERVE["max_seq"] - 8,
+                                every).float().cpu(),
+            f"decode_{arch}_{MOE_LAYERS}L_B8", ROOT / "chiprun_out",
+            expect=("flash_attention",))
+    fa.LAUNCHES.update(saved)
+    busy = sum(dt for dt, _, _ in prof)
+    gemm = sum(dt for dt, _, key in prof if any(
+        w in key.lower() for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                                   "cublas", "splitk")))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    res.update(prof_busy=busy, prof_gemm=gemm, bytes=nbytes, bound_ms=bound)
+    log(f"  one decode step at B = {B}: card busy {busy:.4f} ms (GEMMs "
+        f"{gemm:.4f} ms) against the bytes bound {bound:.4f} ms (every "
+        f"weight but the embedding read once, {nbytes / 1e9:.2f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: C = T = {B}, so each expert's "
+        f"GEMMs run) {tag}")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+    res["counts"] = counts
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 3o {cfg.name}: {res['phase_s']:.1f} s; peak allocated "
+        f"{res['peak_gb']:.2f} GB besides {held / 1e9:.2f} GB {tag}")
+    return res, {k: (a, kw) for k, (_, a, kw) in calls.items()}
+
+
 def check_kernel_api(torch, dev, index, q_words, p):
     """Phase 2: the reference's kernel API (ROADMAP C-P4) on the card: the
     package's ``verify_tuples_grouped`` on a padded (B, C, W) block (one K1
@@ -3611,7 +4248,7 @@ def main() -> int:
         f"N + 5 over 70,001 codes, offset code views): equal bit for bit")
     worst = check_flash_cases(fa, torch, dev)
     log(f"  K7 flash_attention, {len(FLASH_CASES)} cases x float32/bf16 "
-        f"(MHA, GQA, MQA, G = 3; causal or not; windows 8, 16, 24, 64; "
+        f"(MHA, GQA, MQA, G = 3, 5, 7; causal or not; windows 8, 16, 24, 64; "
         f"valid_len 0, 1, 37, 100, 160; Sq, Sk 100, 130, 160; D 16, 20, 32, "
         f"48, 64, 112, 128, 256, 320, 512; G up to 96) against the plain "
         f"version in "
@@ -3868,9 +4505,11 @@ def main() -> int:
     training = train_path(dev, tag, zero_counts)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 3h: token serving, llama3-8b at full width and depth {tag}")
+    log(f"phase 3h: token serving, llama3-8b at full width, "
+        f"{LLAMA_SERVE_LAYERS} of 32 layers {tag}")
     llama_serving, k7_llama = serve_path(dev, tag, zero_counts,
-                                         arch="llama3_8b", label="3h")
+                                         arch="llama3_8b", label="3h",
+                                         layers=LLAMA_SERVE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3i: training, llama3-8b at full width, "
@@ -3892,14 +4531,33 @@ def main() -> int:
     whisper, k7_whisper = whisper_path(dev, tag, zero_counts)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 3m: mamba2-1.3b at full width and depth, token serving "
-        f"{tag}")
+    log(f"phase 3m: mamba2-1.3b at full width, {MAMBA_SERVE_LAYERS} of 48 "
+        f"layers, token serving {tag}")
     mamba_serving, _ = serve_path(dev, tag, zero_counts, arch="mamba2_1_3b",
-                                  label="3m")
+                                  label="3m", layers=MAMBA_SERVE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3m: mamba2-1.3b training through the CLI {tag}")
     mamba_training = mamba_train_path(dev, tag, zero_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3n: hymba-1.5b at full width and depth, token serving {tag}")
+    hymba_serving, _ = serve_path(dev, tag, zero_counts, arch="hymba_1_5b",
+                                  label="3n", cli=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3n: hymba-1.5b past its window of 2,048: the ring set and "
+        f"training {tag}")
+    hymba, k7_hymba = hymba_path(dev, tag, zero_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3o: arctic-480b and kimi-k2 at full width, {MOE_LAYERS} "
+        f"layers each {tag}")
+    moe, k7_moe = {}, {}
+    for arch in ("arctic_480b", "kimi_k2_1t_a32b"):
+        moe[arch], k7_moe[arch] = moe_one(arch, dev, tag, zero_counts)
+        gc.collect()
+        torch.cuda.empty_cache()
     launches = {"verify_grouped": amih_counts["verify_grouped"],
                 "probe_walk": amih_counts["probe_walk"],
                 "probe_walk_cluster": amih_counts["probe_walk_cluster"],
@@ -3914,7 +4572,10 @@ def main() -> int:
                 + serving["launches"] + training["launches"]
                 + llama_serving["launches"] + llama_training["launches"]
                 + sum(g["launches"] for g in granite.values())
-                + whisper["launches"] + whisper["train_launches"]}
+                + whisper["launches"] + whisper["train_launches"]
+                + hymba_serving["launches"] + hymba["ring_launches"]
+                + hymba["train_launches"]
+                + sum(r["launches"] for r in moe.values())}
     log(f"  kernel launches, AMIH path: {amih_counts}; K2/K3 by wrapper "
         f"and query rows: " + ", ".join(
             f"{name} B={rows}: {n}"
@@ -4061,6 +4722,28 @@ def main() -> int:
             f"{e['launches']} launches on 3l; within "
             f"{e['max_abs_err']:.4g} of plain {tag}")
 
+    # K7 on the hybrid's and the MoE family's operands: hymba's windowed
+    # forward (the teacher-forced check over 2,127 positions, window
+    # 2,048), its ring decode (valid_len 2,048) and its 4,096-token
+    # training step; arctic's (G = 7, D = 128) and kimi's (G = 8, D = 112)
+    # longest prefill and fullest decode; launches on 3n and 3o by kind
+    for label, calls_, kind, n in (
+            ("3n hymba-1.5b", k7_hymba, "window", hymba["by_kind"]["window"]),
+            ("3n hymba-1.5b", k7_hymba, "decode", hymba["by_kind"]["decode"]),
+            ("3n hymba-1.5b", k7_hymba, "train", hymba["by_kind"]["train"]),
+            *((f"3o {arch}", k7_moe[arch], kind, moe[arch]["counts"][kind])
+              for arch in ("arctic_480b", "kimi_k2_1t_a32b")
+              for kind in ("prefill", "decode"))):
+        e = k7_path[label, kind] = check_flash_call(fa, *calls_[kind])
+        e["launches"] = n
+        log(f"  flash_attention, {label} {kind} ({e['shape']}): kernel "
+            f"{e['ms']:.6f} ms, plain {e['plain_ms']:.2f} ms, "
+            f"scaled_dot_product_attention {e['library_ms']:.6f} ms on the "
+            f"same keys (differs from plain by {e['library_diff']:.4g}), "
+            f"bound {e['bound_ms']:.6f} ms ({e['bound_by']}); "
+            f"{e['launches']} launches; within {e['max_abs_err']:.4g} of "
+            f"plain {tag}")
+
     def pick(names):
         best = None
         for key, e in per.items():
@@ -4192,7 +4875,7 @@ def main() -> int:
         f"{e['library_ms']:.6f})")
     r = llama_serving
     e = k7_path["3h llama3-8b", "decode"]
-    log(f"  token serving (llama3-8b, 32 layers, B = 8): "
+    log(f"  token serving (llama3-8b, {LLAMA_SERVE_LAYERS} layers, B = 8): "
         f"{r['tokens_s']:.1f} tokens/s, decode step {r['step_ms']:.3f} ms "
         f"(median; {r['step_ms_big']:.3f} at {r['group_big']} rows), card "
         f"busy {r['prof_busy']:.4f} ms a profiled step, peak "
@@ -4230,7 +4913,7 @@ def main() -> int:
                     f"{k7_path['3l whisper-tiny', k]['library_ms']:.6f})"
                     for k in ("encoder", "cross", "cross_decode")))
     r = mamba_serving
-    log(f"  token serving (mamba2-1.3b, 48 layers, B = 8): "
+    log(f"  token serving (mamba2-1.3b, {MAMBA_SERVE_LAYERS} layers, B = 8): "
         f"{r['tokens_s']:.1f} tokens/s, decode step {r['step_ms']:.3f} ms "
         f"(median; {r['step_ms_big']:.3f} at {r['group_big']} rows), card "
         f"busy {r['prof_busy']:.4f} ms a profiled step, peak "
@@ -4241,6 +4924,38 @@ def main() -> int:
         f"{r['tokens_s']:,.0f} tokens/s, mfu {r['mfu']:.4f}, peak "
         f"{r['peak_gb']:.2f} GB, losses {r['losses'][0]:.4f} -> "
         f"{r['losses'][-1]:.4f}; {r['wall_s']:.1f} s with its checkpoints")
+    r = hymba_serving
+    log(f"  token serving (hymba-1.5b, 32 layers, B = 8, max_seq 256): "
+        f"{r['tokens_s']:.1f} tokens/s, decode step {r['step_ms']:.3f} ms "
+        f"(median; {r['step_ms_big']:.3f} at {r['group_big']} rows), card "
+        f"busy {r['prof_busy']:.4f} ms a profiled step, peak "
+        f"{r['peak_gb']:.2f} GB, K7 launches {r['launches']}")
+    r = hymba
+    e = k7_path["3n hymba-1.5b", "decode"]
+    log(f"  hymba-1.5b ring set (8 x {RING_PROMPT} + 128 tokens): "
+        f"{r['ring_tokens_s']:.1f} tokens/s, decode step "
+        f"{r['ring_step_ms']:.3f} ms ({r['ring_step_ms_wrapped']:.3f} after "
+        f"the wrap) against {r['ring_prof_busy']:.4f} ms of card time, "
+        f"prefill {r['ring_prefill_ms']:.2f} ms; K7 at the ring decode "
+        f"{e['ms']:.6f} ms (bound {e['bound_ms']:.6f}, SDPA "
+        f"{e['library_ms']:.6f})")
+    t = r["train"]
+    log(f"  training (hymba-1.5b, B = 8 x 128): step {t['step_ms']:.3f} ms, "
+        f"{t['tokens_s']:,.0f} tokens/s, mfu {t['mfu']:.4f}, losses "
+        f"{t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}; 2 x 4096: "
+        + ", ".join(f"{x:.1f}" for x in r["long_ms"]) + " ms, losses "
+        + ", ".join(f"{x:.4f}" for x in r["long_losses"])
+        + f"; peak {r['peak_gb']:.2f} GB")
+    for arch, r in moe.items():
+        e = k7_path[f"3o {arch}", "decode"]
+        log(f"  {arch} ({MOE_LAYERS} layers, G = {r['G']}): {r['tokens_s']:.1f}"
+            f" tokens/s, decode step {r['step_ms_big']:.3f} ms at "
+            f"{r['group_big']} rows against {r['prof_busy']:.4f} ms of card "
+            f"time and a {r['bound_ms']:.4f} ms bytes bound; loss forward "
+            f"ce {r['loss']['ce']:.4f}, moe_lb {r['loss']['moe_lb']:.6f}, "
+            f"moe_rz {r['loss']['moe_rz']:.6f}, dropped_fraction "
+            f"{r['loss']['dropped_fraction']:.6f}; K7 decode {e['ms']:.6f} "
+            f"ms (bound {e['bound_ms']:.6f}, SDPA {e['library_ms']:.6f})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

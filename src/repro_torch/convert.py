@@ -15,9 +15,11 @@ the port's dict of tensors with the same keys, shapes and dtypes (every
 family's tree: the enc-dec family's ``enc_layers``, ``enc_norm``,
 ``xattn`` and layernorm biases, the SSM's ``in_proj``, ``conv_w``, ...).
 ``cache_from_reference`` does the same for the reference's decode cache
-(``{"layers": LayerCache(attn=AttnCache(k, v), ssm=SSMState(conv, ssm))}``
-with either half None, or the enc-dec family's ``EncDecCache(self_kv,
-cross_kv)``; leaves as numpy, bf16 ones as ``ml_dtypes.bfloat16``) and
+(``{"layers": LayerCache(attn=AttnCache(k, v), ssm=SSMState(conv,
+ssm))}`` with either half None or, for the hybrid, both, plus a MoE
+model's ``"front_layers"``, or the enc-dec family's
+``EncDecCache(self_kv, cross_kv)``; leaves as numpy, bf16 ones as
+``ml_dtypes.bfloat16``) and
 returns the port's tree of the same NamedTuples. ``opt_state_from_reference`` does the
 same for the reference's AdamW state (``init_state``/``apply_updates``:
 the step and the moments, int8 ``QuantMoment``s included).

@@ -1,16 +1,17 @@
-"""Transformer block of the port's LM (the dense, encoder-decoder and SSM
-branches of the reference's ``models/blocks.py``):
+"""Transformer block of the port's LM (the reference's ``models/blocks.py``):
 
   dense   x += attn(norm(x));  x += mlp(norm(x))
+  moe     x += attn(norm(x));  x += moe(norm(x)) [+ dense-residual mlp]
   ssm     x += ssd(norm(x))                         (no MLP when d_ff == 0)
+  hybrid  x += g_a*attn(norm(x)) + g_m*ssd(norm(x)); x += mlp(norm(x))
 
 ``block_forward`` is the full-sequence path (the encoder, prefill, the
 scoring forward), ``block_decode`` the single-token path against a KV
-cache or an SSM state. The enc-dec family's layers run the dense branch
-here (the reference's ``block_forward`` does the same; its decoder with
-cross-attention lives in ``encdec.py``). Caches are NamedTuples laid out
-as the reference lays them. MoE and hybrid are ROADMAP A11 and raise
-``NotImplementedError``, and so does the vlm family.
+cache (linear, or a ring buffer of the sliding window) and an SSM state.
+The enc-dec family's layers run the dense branch here (the reference's
+``block_forward`` does the same; its decoder with cross-attention lives
+in ``encdec.py``). Caches are NamedTuples laid out as the reference lays
+them. The vlm family is ROADMAP A11 and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .common import not_ported
 from .layers import (
@@ -36,6 +38,8 @@ __all__ = [
     "attention_decode",
     "attention_full",
     "block_decode",
+    "cache_slot",
+    "ring_buffer",
     "block_forward",
     "cross_attention_decode",
 ]
@@ -52,7 +56,7 @@ class LayerCache(NamedTuple):
 
 
 def _ported(cfg):
-    if cfg.family not in ("dense", "encdec", "ssm") or cfg.is_moe:
+    if cfg.family not in ("dense", "moe", "encdec", "ssm", "hybrid"):
         raise not_ported(f"the {cfg.family!r} block")
 
 
@@ -80,21 +84,39 @@ def attention_full(x, p, cfg, positions, *, causal: bool = True,
     return out, (k, v)
 
 
+def ring_buffer(s_cache: int, window: int) -> bool:
+    """Whether a K/V cache of ``s_cache`` slots is a ring buffer: it is no
+    longer than a sliding ``window``."""
+    return bool(window) and s_cache <= window
+
+
+def cache_slot(pos: int, s_cache: int, window: int) -> int:
+    """The K/V slot the token at ``pos`` goes to in a cache of
+    ``s_cache`` slots: pos % s_cache on a ring buffer, else pos."""
+    return pos % s_cache if ring_buffer(s_cache, window) else pos
+
+
 def attention_decode(x, p, cfg, cache: AttnCache, pos: int, *,
                      window: int = 0):
     """Single-token attention at position ``pos`` (a Python int): writes
-    this token's k and v into slot ``pos`` of ``cache`` in place (the
-    reference's engine donates its cache) and attends over slots
-    [0, pos]. Returns (out, cache)."""
+    this token's k and v into ``cache`` in place (the reference's engine
+    donates its cache) and attends over what the cache holds. Returns
+    (out, cache).
+
+    The slot is ``cache_slot``'s: on a ring buffer the key carries RoPE at
+    its absolute position, so relative phases stay exact."""
     q, k, v = _attn_proj(x, p)          # (B, 1, H, Dh)
     if cfg.rope_theta > 0:
         posv = torch.full((1,), pos, device=x.device)
         cos, sin = rope_angles(posv, cfg.head_dim_, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
-    out = decode_attention(q, cache.k, cache.v, pos + 1, window=window)
+    s_cache = cache.k.shape[1]
+    slot = cache_slot(pos, s_cache, window)
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    out = decode_attention(q, cache.k, cache.v, pos + 1, window=window,
+                           ring=ring_buffer(s_cache, window))
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, cache
 
@@ -109,9 +131,34 @@ def cross_attention_decode(x, p, cfg, cross_k, cross_v):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cdt))
 
 
+def _ffn(x, p, cfg):
+    """The dense MLP, or the MoE block plus the dense-residual MLP, on
+    (B, S, D). Returns (out, aux)."""
+    if not cfg.is_moe:
+        return mlp(x, p["mlp"], cfg.activation), {}
+    B, S, D = x.shape
+    with torch.profiler.record_function("moe"):
+        out, aux = moe_lib.moe_block(
+            x.reshape(B * S, D), p["moe"], top_k=cfg.experts_per_token,
+            capacity_factor=cfg.capacity_factor, activation=cfg.activation)
+    out = out.reshape(B, S, D)
+    if cfg.moe_dense_residual_ff:
+        out = out + mlp(x, p["moe_dense"], cfg.activation)
+    return out, aux
+
+
+def _fuse(p, x, attn_out, ssm_out):
+    """The hybrid's two branches, each scaled by its learned per-channel
+    gate."""
+    return x + p["fuse_attn"].to(x.dtype) * attn_out \
+        + p["fuse_ssm"].to(x.dtype) * ssm_out
+
+
 def block_forward(cfg, p, x, positions, *, window: int = 0,
-                  build_cache: bool = False, causal: bool = True):
-    """One layer, full sequence. Returns (x, aux, cache or None)."""
+                  build_cache: bool = False, moe_layer: bool = True,
+                  causal: bool = True):
+    """One layer, full sequence. Returns (x, aux, cache or None); ``aux``
+    holds the MoE block's terms (empty elsewhere)."""
     _ported(cfg)
     h = apply_norm(x, p["ln1"], cfg.norm)
     if cfg.family == "ssm":
@@ -125,13 +172,27 @@ def block_forward(cfg, p, x, positions, *, window: int = 0,
         return x + out, {}, cache
     attn_out, (k, v) = attention_full(h, p["attn"], cfg, positions,
                                       causal=causal, window=window)
-    x = x + attn_out
-    cache = (LayerCache(attn=AttnCache(k=k, v=v), ssm=None)
+    state = None
+    if cfg.family == "hybrid":
+        if build_cache:
+            ssm_out, state = ssm_lib.ssm_forward(h, p["ssm"], cfg,
+                                                 return_state=True)
+        else:
+            ssm_out = ssm_lib.ssm_forward(h, p["ssm"], cfg)
+        x = _fuse(p, x, attn_out, ssm_out)
+    else:
+        x = x + attn_out
+    cache = (LayerCache(attn=AttnCache(k=k, v=v), ssm=state)
              if build_cache else None)
-    if cfg.d_ff > 0:
+    aux = {}
+    if cfg.d_ff > 0 or cfg.is_moe:
         h2 = apply_norm(x, p["ln2"], cfg.norm)
-        x = x + mlp(h2, p["mlp"], cfg.activation)
-    return x, {}, cache
+        if moe_layer:
+            out, aux = _ffn(h2, p, cfg)
+        else:
+            out = mlp(h2, p["mlp"], cfg.activation)
+        x = x + out
+    return x, aux, cache
 
 
 def block_decode(cfg, p, x, cache: LayerCache, pos: int, *,
@@ -145,8 +206,14 @@ def block_decode(cfg, p, x, cache: LayerCache, pos: int, *,
         return x + out, LayerCache(attn=None, ssm=new_ssm)
     attn_out, new_attn = attention_decode(h, p["attn"], cfg, cache.attn, pos,
                                           window=window)
-    x = x + attn_out
-    if cfg.d_ff > 0:
+    new_ssm = None
+    if cfg.family == "hybrid":
+        ssm_out, new_ssm = ssm_lib.ssm_decode_step(h, cache.ssm, p["ssm"],
+                                                   cfg)
+        x = _fuse(p, x, attn_out, ssm_out)
+    else:
+        x = x + attn_out
+    if cfg.d_ff > 0 or cfg.is_moe:
         h2 = apply_norm(x, p["ln2"], cfg.norm)
-        x = x + mlp(h2, p["mlp"], cfg.activation)
-    return x, LayerCache(attn=new_attn, ssm=None)
+        x = x + _ffn(h2, p, cfg)[0]
+    return x, LayerCache(attn=new_attn, ssm=new_ssm)

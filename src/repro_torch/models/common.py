@@ -3,10 +3,10 @@
 
 Every parameter shape derives from one frozen ``ArchConfig``. The port
 runs the dense family (the retrieval encoder, serving, training), the
-encoder-decoder (whisper) and the SSM (mamba2); the fields of the other
-families are kept so that a reference config copies over unchanged, and
-the code that would read them raises ``NotImplementedError`` (ROADMAP
-A11).
+encoder-decoder (whisper), the SSM (mamba2), the hybrid (hymba) and MoE
+(arctic, kimi-k2); the vlm family's fields are kept so that a reference
+config copies over unchanged, and the code that would read them raises
+``NotImplementedError`` (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -106,6 +106,14 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def has_ssm(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_attention(self) -> bool:
+        return self.family != "ssm"
+
     def pdtype(self) -> torch.dtype:
         return _dtype(self.param_dtype)
 
@@ -120,6 +128,13 @@ class ArchConfig:
         from . import lm
 
         return lm.count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (MoE: only its routed experts
+        count)."""
+        from . import lm
+
+        return lm.count_params(self, active_only=True)
 
 
 def not_ported(what: str) -> NotImplementedError:

@@ -3,10 +3,10 @@ sinusoidal positions, MLPs and attention (a port of the reference's
 ``models/layers.py``).
 
 ``blocked_attention`` (training, prefill, the encoder) and
-``decode_attention`` (one query row against a linear KV cache, with
-``valid_len``) run K7 (``kernels.flash_attention``): the kernel on a CUDA
-tensor, its plain version on a CPU tensor, as the reference runs its
-Pallas kernel on the TPU. ``_blocked_attention_impl`` and
+``decode_attention`` (one query row against a linear or ring-buffer KV
+cache, with ``valid_len``) run K7 (``kernels.flash_attention``): the
+kernel on a CUDA tensor, its plain version on a CPU tensor, as the
+reference runs its Pallas kernel on the TPU. ``_blocked_attention_impl`` and
 ``_decode_attention_impl`` are the reference's pure paths, which the
 reference runs off the TPU; the port keeps them as second plain versions
 that the tests hold against the reference, and ``blocked_attention``'s
@@ -24,7 +24,6 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import NEG_INF, flash_attention
-from .common import not_ported
 
 __all__ = [
     "apply_norm",
@@ -235,22 +234,30 @@ def _blocked_attention_impl(q, k, v, *, causal: bool, window: int = 0,
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
                      ring: bool = False):
-    """One query row (B, 1, Hq, D) against a linear KV cache
-    (B, S, Hkv, D) whose slots [0, cache_len) are valid (with ``window``,
-    only the last ``window`` of them), through K7 with ``valid_len``.
-    ``cache_len`` is a Python int, so nothing waits for the card. The
-    hybrid family's ring buffer (``ring=True``) is not ported."""
+    """One query row (B, 1, Hq, D) against a KV cache (B, S, Hkv, D),
+    through K7 with ``valid_len``. ``cache_len`` is the number of tokens
+    written so far, a Python int, so nothing waits for the card.
+
+    A linear cache's valid slots are [0, cache_len), with ``window`` only
+    the last ``window`` of them. A ring buffer (``ring=True``, slot =
+    position % S, the hybrid family's sliding window) holds by
+    construction exactly the last min(cache_len, S) positions in slots
+    [0, min(cache_len, S)), so it runs with that ``valid_len`` and no
+    window: a softmax over a set of slots does not depend on their order.
+    (The reference's ring branch bypasses its kernel; its plain path is
+    ``_decode_attention_impl`` with ``ring=True``.)"""
     if ring:
-        raise not_ported("the ring-buffer KV cache")
+        cache_len, window = min(int(cache_len), k_cache.shape[1]), 0
     return flash_attention(q.contiguous(), k_cache.contiguous(),
                            v_cache.contiguous(), causal=False,
                            window=window, valid_len=int(cache_len))
 
 
 def _decode_attention_impl(q, k_cache, v_cache, cache_len, *,
-                           window: int = 0):
+                           window: int = 0, ring: bool = False):
     """The reference's pure decode attention: scores in float32, a masked
-    softmax, p cast to v's dtype before the PV product."""
+    softmax, p cast to v's dtype before the PV product; on a ring buffer
+    the slots below ``cache_len`` and no window mask."""
     B, S, Hkv, D = k_cache.shape
     Hq = q.shape[2]
     G = Hq // Hkv
@@ -258,7 +265,7 @@ def _decode_attention_impl(q, k_cache, v_cache, cache_len, *,
     s = torch.einsum("bhgd,bkhd->bhgk", qh, k_cache.float()) * D ** -0.5
     k_pos = torch.arange(S, device=q.device)
     ok = k_pos < cache_len
-    if window > 0:
+    if window > 0 and not ring:
         ok &= k_pos >= cache_len - window
     s = torch.where(ok[None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)

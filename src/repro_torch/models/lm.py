@@ -1,17 +1,22 @@
-"""The port's decoder LM, dense and SSM families (the reference's
-``models/lm.py``): parameter templates (the enc-dec family's too, whose
-forward lives in ``encdec.py``), random init, embedding, the layer stack,
-the LM head, the scoring forward, the loss, the decode cache, prefill and
-the decode step.
+"""The port's decoder LM, the dense, MoE, SSM and hybrid families (the
+reference's ``models/lm.py``): parameter templates (the enc-dec family's
+too, whose forward lives in ``encdec.py``), random init, embedding, the
+layer stack, the LM head, the scoring forward, the loss, the decode
+cache, prefill and the decode step.
 
 Parameters are a plain dict of tensors with the reference's tree: per
-layer tensors stacked on a leading "layers" axis under ``"layers"``, the
-embedding, the final norm, and ``"unembed"`` where embeddings are untied.
+layer tensors stacked on a leading "layers" axis under ``"layers"`` (and
+a MoE model's ``first_k_dense`` leading dense layers under
+``"front_layers"``), the embedding, the final norm, and ``"unembed"``
+where embeddings are untied.
 ``init_params`` draws them as the reference does (normal, std 0.02 and
 0.02 / sqrt(2 L) for output projections, norms at 1, biases at 0, the
 SSM's ``A_log``, ``dt_bias`` and ``D_skip`` fixed; ``param_dtype``),
-from a ``torch.Generator`` on the target device; ``param_specs`` gives
-their shapes and dtypes on the ``meta`` device.
+from a ``torch.Generator`` on the target device (a leaf stored in
+another dtype than float32 is drawn in float32 slices of at most
+``_DRAW_SLICE`` elements, straight into its tensor, so arctic's 8.9 G
+element expert stack needs no float32 copy); ``param_specs`` gives their
+shapes and dtypes on the ``meta`` device.
 
 The stack splits each stacked leaf once a forward (``unbind``), so under
 autograd each leaf's gradient comes back as one stack, not as a full-size
@@ -21,20 +26,25 @@ zero gradient per layer. Under autograd each layer is rematerialised as
 backward, K7 included, ``"dots"`` keeps the matmul outputs, ``"none"``
 keeps everything. ``loss_fn`` is next-token cross-entropy plus a 1e-4
 z-loss, over the full float32 logits or, with ``cfg.ce_chunk``, over
-checkpointed chunks of ``ce_chunk`` tokens.
+checkpointed chunks of ``ce_chunk`` tokens, plus for MoE the layers' mean
+load-balance loss (x 0.01) and router z-loss (x 1e-3); as in the
+reference, the leading dense layers add no aux terms. The hybrid family's
+attention runs with ``cfg.sliding_window``.
 
 The decode cache is ``{"layers": LayerCache(attn=AttnCache(k, v),
 ssm=None)}`` with k and v laid out (layers, batch, kv_len, kv_heads,
 head_dim) in the compute dtype, as the reference's; the SSM family's is
 ``LayerCache(attn=None, ssm=SSMState(conv, ssm))``, conv (layers, batch,
 conv_width - 1, conv_dim) in the compute dtype and ssm (layers, batch, H,
-P, N) in float32. ``decode_step`` writes its token's k and v, or each
-layer's new SSM state, into that cache in place (the reference's serving
-engine donates it) and returns it. ``prefill``, ``forward``, ``loss_fn``,
+P, N) in float32; the hybrid's has both halves, its k and v a ring
+buffer of kv_len = min(max_seq, sliding_window) slots; a MoE model with
+leading dense layers has a second ``"front_layers"`` KV cache.
+``decode_step`` writes its token's k and v, or each layer's new SSM
+state, into that cache in place (the reference's serving engine donates
+it) and returns it. ``prefill``, ``forward``, ``loss_fn``,
 ``init_cache`` and ``decode_step`` run on ``device`` (None: the CUDA
 device; it raises without one) and refuse parameters that lie elsewhere.
-MoE, hybrid and vlm, and MoE's loss terms, are ROADMAP A11 and raise
-``NotImplementedError``.
+The vlm family is ROADMAP A11 and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from .layers import apply_norm
 
 __all__ = [
     "PSpec",
+    "attention_window",
     "cache_template",
     "count_params",
     "decode_step",
@@ -86,7 +97,11 @@ class PSpec(NamedTuple):
     init: str = "normal"   # normal | out | zeros | ones | ssm_special
 
 
-_FAMILIES = ("dense", "encdec", "ssm")
+_FAMILIES = ("dense", "moe", "encdec", "ssm", "hybrid")
+
+# a leaf stored in another dtype than float32 is drawn in float32 slices
+# of at most this many elements (1 GiB)
+_DRAW_SLICE = 1 << 28
 
 
 # ------------------------------------------------------------- templates
@@ -121,6 +136,18 @@ def _mlp_t(cfg, d_ff: int) -> Dict[str, PSpec]:
     return t
 
 
+def _moe_t(cfg) -> Dict[str, PSpec]:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    t = {
+        "router": PSpec((d, e), ("embed", "experts"), "f"),
+        "w_up": PSpec((e, d, f), ("experts", "embed", "mlp")),
+        "w_down": PSpec((e, f, d), ("experts", "mlp", "embed"), "p", "out"),
+    }
+    if cfg.activation in ("swiglu", "geglu"):
+        t["w_gate"] = PSpec((e, d, f), ("experts", "embed", "mlp"))
+    return t
+
+
 def _ssm_t(cfg) -> Dict[str, PSpec]:
     out = {}
     for name, (shape, axes, kind) in ssm_lib.ssm_param_shapes(cfg).items():
@@ -133,20 +160,32 @@ def _ssm_t(cfg) -> Dict[str, PSpec]:
     return out
 
 
-def layer_template(cfg: ArchConfig, cross_attn: bool = False):
-    """Template for one layer (unstacked); ``cross_attn`` adds the
-    decoder's cross-attention (``lnx``, ``xattn``) of the enc-dec family."""
-    if cfg.family not in _FAMILIES or cfg.is_moe:
+def layer_template(cfg: ArchConfig, moe: bool = True,
+                   cross_attn: bool = False):
+    """Template for one layer (unstacked). A MoE config's layer carries
+    the MoE block where ``moe`` (else the dense MLP); ``cross_attn`` adds
+    the decoder's cross-attention (``lnx``, ``xattn``) of the enc-dec
+    family."""
+    if cfg.family not in _FAMILIES:
         raise not_ported(f"the {cfg.family!r} layer")
     t: Dict[str, Any] = {"ln1": _norm_t(cfg)}
-    if cfg.family == "ssm":
-        t["ssm"] = _ssm_t(cfg)
-    else:
+    if cfg.has_attention:
         t["attn"] = _attn_t(cfg)
+    if cfg.has_ssm:
+        t["ssm"] = _ssm_t(cfg)
+    if cfg.family == "hybrid":
+        d = cfg.d_model
+        t["fuse_attn"] = PSpec((d,), ("embed",), "p", "ones")
+        t["fuse_ssm"] = PSpec((d,), ("embed",), "p", "ones")
     if cross_attn:
         t["lnx"] = _norm_t(cfg)
         t["xattn"] = _attn_t(cfg)
-    if cfg.d_ff > 0:
+    if moe and cfg.is_moe:
+        t["ln2"] = _norm_t(cfg)
+        t["moe"] = _moe_t(cfg)
+        if cfg.moe_dense_residual_ff:
+            t["moe_dense"] = _mlp_t(cfg, cfg.moe_dense_residual_ff)
+    elif cfg.d_ff > 0:
         t["ln2"] = _norm_t(cfg)
         t["mlp"] = _mlp_t(cfg, cfg.d_ff)
     return t
@@ -159,9 +198,12 @@ def _stack(template, n: int):
     return {k: _stack(v, n) for k, v in template.items()}
 
 
+def _dense(cfg: ArchConfig) -> ArchConfig:
+    """The config of a MoE model's leading dense layers."""
+    return cfg.replace(n_experts=0)
+
+
 def model_template(cfg: ArchConfig):
-    if cfg.first_k_dense:
-        raise not_ported("leading dense layers of a MoE model")
     d, v = cfg.d_model, cfg.vocab_size
     t: Dict[str, Any] = {
         "embed": PSpec((v, d), ("vocab", "embed")),
@@ -173,10 +215,15 @@ def model_template(cfg: ArchConfig):
         # the decoder's layers carry cross-attention; the encoder's do not
         t["layers"] = _stack(layer_template(cfg, cross_attn=True),
                              cfg.n_layers)
-        t["enc_layers"] = _stack(layer_template(cfg), cfg.n_encoder_layers)
+        t["enc_layers"] = _stack(layer_template(cfg, moe=False),
+                                 cfg.n_encoder_layers)
         t["enc_norm"] = _norm_t(cfg)
-    else:
-        t["layers"] = _stack(layer_template(cfg), cfg.n_layers)
+        return t
+    if cfg.first_k_dense:
+        t["front_layers"] = _stack(layer_template(_dense(cfg), moe=False),
+                                   cfg.first_k_dense)
+    t["layers"] = _stack(layer_template(cfg),
+                         cfg.n_layers - cfg.first_k_dense)
     return t
 
 
@@ -184,9 +231,18 @@ def _is_pspec(x) -> bool:
     return isinstance(x, PSpec)
 
 
-def count_params(cfg: ArchConfig) -> int:
-    return sum(math.prod(s.shape) for _, s in leaves_with_path(
-        model_template(cfg), _is_pspec))
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    """All parameters, or (``active_only``) those one token runs through:
+    of a MoE model's routed experts only ``experts_per_token`` of
+    ``n_experts``."""
+    total = 0
+    for path, spec in leaves_with_path(model_template(cfg), _is_pspec):
+        n = math.prod(spec.shape)
+        if active_only and cfg.is_moe and path[-1] in ("w_up", "w_down",
+                                                       "w_gate"):
+            n = n * cfg.experts_per_token // cfg.n_experts
+        total += n
+    return total
 
 
 def param_specs(cfg: ArchConfig):
@@ -216,14 +272,31 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None):
             std = 0.02
             if spec.init == "out":
                 std = 0.02 / math.sqrt(2 * cfg.n_layers)
-            t = torch.randn(spec.shape, generator=generator,
-                            dtype=torch.float32, device=device)
-            t = t.mul_(std).to(dt)
+            t = _normal(spec.shape, std, dt, generator, device)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = t
     return out
+
+
+def _normal(shape, std: float, dt, generator, device):
+    """Normal(0, std) draws in float32, stored as ``dt``: one draw for a
+    float32 leaf or a small one, else slices of ``_DRAW_SLICE`` elements
+    drawn one after another into the ``dt`` tensor."""
+    n = math.prod(shape)
+    if dt == torch.float32 or n <= _DRAW_SLICE:
+        t = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return t.mul_(std).to(dt)
+    t = torch.empty(shape, dtype=dt, device=device)
+    flat = t.view(-1)
+    for lo in range(0, n, _DRAW_SLICE):
+        hi = min(n, lo + _DRAW_SLICE)
+        flat[lo:hi].copy_(torch.randn(hi - lo, generator=generator,
+                                      dtype=torch.float32,
+                                      device=device).mul_(std))
+    return t
 
 
 def _ssm_special(name: str, shape, dt, device):
@@ -307,24 +380,35 @@ def _remat_context(cfg):
     raise ValueError(f"unknown remat {cfg.remat!r}")
 
 
-def _layer_out(cfg, lp, h, positions, window):
-    return block_forward(cfg, lp, h, positions, window=window)[0]
+def _layer_out(cfg, lp, h, positions, window, moe):
+    return block_forward(cfg, lp, h, positions, window=window,
+                         moe_layer=moe)[:2]
 
 
-def _apply_stack(cfg, stack_params, h, positions, *, window: int = 0):
+def _apply_stack(cfg, stack_params, h, positions, *, window: int = 0,
+                 moe: bool = True):
     """The stacked layers in order; where autograd records them, each is
-    rematerialised as ``cfg.remat`` says."""
+    rematerialised as ``cfg.remat`` says. Returns (h, aux summed over the
+    layers)."""
     recorded = torch.is_grad_enabled() and (h.requires_grad or any(
         t.requires_grad for _, t in leaves_with_path(stack_params)))
     context_fn = _remat_context(cfg) if recorded else None
+    aux = {}
     for lp in _split_layers(stack_params):
         if context_fn is None:
-            h = _layer_out(cfg, lp, h, positions, window)
+            h, a = _layer_out(cfg, lp, h, positions, window, moe)
         else:
-            h = checkpoint(_layer_out, cfg, lp, h, positions, window,
-                           use_reentrant=False, context_fn=context_fn,
-                           preserve_rng_state=False)
-    return h
+            h, a = checkpoint(_layer_out, cfg, lp, h, positions, window, moe,
+                              use_reentrant=False, context_fn=context_fn,
+                              preserve_rng_state=False)
+        aux = {k: aux[k] + v if k in aux else v for k, v in a.items()}
+    return h, aux
+
+
+def attention_window(cfg) -> int:
+    """The sliding window of the family's attention (the hybrid's), else
+    0."""
+    return cfg.sliding_window if cfg.family == "hybrid" else 0
 
 
 def _placed(params, tokens, device):
@@ -344,8 +428,13 @@ def forward_hidden(cfg: ArchConfig, params, batch, *, device=None):
     dev, tokens = _placed(params, batch["tokens"], device)
     h = embed_tokens(cfg, params, tokens)
     positions = torch.arange(h.shape[1], device=dev)
-    h = _apply_stack(cfg, params["layers"], h, positions)
-    return apply_norm(h, params["final_norm"], cfg.norm), {}
+    window = attention_window(cfg)
+    if cfg.first_k_dense:
+        # the reference drops the leading dense layers' aux (there is none)
+        h, _ = _apply_stack(_dense(cfg), params["front_layers"], h,
+                            positions, window=window, moe=False)
+    h, aux = _apply_stack(cfg, params["layers"], h, positions, window=window)
+    return apply_norm(h, params["final_norm"], cfg.norm), aux
 
 
 def forward(cfg: ArchConfig, params, batch, *, device=None):
@@ -401,23 +490,26 @@ def _chunked_ce(cfg, params, h, targets):
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, device=None):
-    """Next-token cross-entropy plus a 1e-4 z-loss. Returns (loss,
-    metrics ``{"ce", "zloss", "loss"}``), 0-d float32 tensors on the run's
-    device. ``ce_chunk > 0`` takes the blocked path (the same math, the
-    logits held a chunk at a time); 0 takes the full logits."""
+    """Next-token cross-entropy plus a 1e-4 z-loss, and for MoE the
+    layers' load-balance and router z-losses. Returns (loss, metrics
+    ``{"ce", "zloss", "loss"}``, for MoE also ``"moe_lb"``, ``"moe_rz"``
+    and ``"dropped_fraction"``), 0-d float32 tensors on the run's device.
+    ``ce_chunk > 0`` takes the blocked path (the same math, the logits
+    held a chunk at a time); 0 takes the full logits."""
     with torch.profiler.record_function("ce_loss"):
         dev, tokens = _placed(params, batch["tokens"], device)
         targets = tokens[:, 1:]
         if cfg.ce_chunk:
-            h, _ = forward_hidden(cfg, params, {"tokens": tokens},
-                                  device=dev)
+            h, aux = forward_hidden(cfg, params, {"tokens": tokens},
+                                    device=dev)
             ce_sum, z_sum, cnt = _chunked_ce(cfg, params, h[:, :-1],
                                              targets)
             denom = torch.clamp(cnt, min=1.0)
             ce = ce_sum / denom
             zloss = 1e-4 * z_sum / denom
         else:
-            logits, _ = forward(cfg, params, {"tokens": tokens}, device=dev)
+            logits, aux = forward(cfg, params, {"tokens": tokens},
+                                  device=dev)
             lg = logits[:, :-1]
             logz = torch.logsumexp(lg, dim=-1)
             ll = lg.gather(-1, targets[..., None])[..., 0]
@@ -426,28 +518,51 @@ def loss_fn(cfg: ArchConfig, params, batch, *, device=None):
             ce = ((logz - ll) * mask).sum() / denom
             zloss = 1e-4 * ((logz ** 2) * mask).sum() / denom
     total = ce + zloss
-    return total, {"ce": ce, "zloss": zloss, "loss": total}
+    metrics = {"ce": ce, "zloss": zloss}
+    if "load_balance_loss" in aux:
+        lb = 0.01 * aux["load_balance_loss"] / cfg.n_layers
+        rz = 1e-3 * aux["router_z_loss"] / cfg.n_layers
+        total = total + lb + rz
+        metrics.update(
+            moe_lb=lb, moe_rz=rz,
+            dropped_fraction=aux["dropped_fraction"] / cfg.n_layers)
+    metrics["loss"] = total
+    return total, metrics
 
 
 # ------------------------------------------------------------------ cache
 def cache_template(cfg: ArchConfig, batch: int, max_seq: int):
     """The decode cache's shapes and dtypes, allocated nowhere (tensors on
-    the ``meta`` device; the reference returns ShapeDtypeStructs)."""
-    if cfg.family not in _FAMILIES or cfg.is_moe or cfg.first_k_dense:
+    the ``meta`` device; the reference returns ShapeDtypeStructs). The
+    hybrid's sliding-window attention gets a ring buffer of
+    min(max_seq, sliding_window) slots."""
+    if cfg.family not in _FAMILIES:
         raise not_ported(f"the {cfg.family!r} decode cache")
-    L, cdt = cfg.n_layers, cfg.cdtype()
+    cdt = cfg.cdtype()
+    window = attention_window(cfg)
+    kv_len = min(max_seq, window) if window else max_seq
 
     def meta(shape, dt):
         return torch.empty(shape, dtype=dt, device="meta")
 
-    if cfg.family == "ssm":
+    def attn_cache(n):
+        shape = (n, batch, kv_len, cfg.n_kv_heads, cfg.head_dim_)
+        return AttnCache(k=meta(shape, cdt), v=meta(shape, cdt))
+
+    def ssm_cache(n):
         H, P, N, _, conv_dim, _ = ssm_lib.ssm_dims(cfg)
-        return {"layers": LayerCache(attn=None, ssm=ssm_lib.SSMState(
-            conv=meta((L, batch, cfg.conv_width - 1, conv_dim), cdt),
-            ssm=meta((L, batch, H, P, N), torch.float32)))}
-    shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
-    return {"layers": LayerCache(
-        attn=AttnCache(k=meta(shape, cdt), v=meta(shape, cdt)), ssm=None)}
+        return ssm_lib.SSMState(
+            conv=meta((n, batch, cfg.conv_width - 1, conv_dim), cdt),
+            ssm=meta((n, batch, H, P, N), torch.float32))
+
+    n_main = cfg.n_layers - cfg.first_k_dense
+    cache = {"layers": LayerCache(
+        attn=attn_cache(n_main) if cfg.has_attention else None,
+        ssm=ssm_cache(n_main) if cfg.has_ssm else None)}
+    if cfg.first_k_dense:
+        cache["front_layers"] = LayerCache(attn=attn_cache(cfg.first_k_dense),
+                                           ssm=None)
+    return cache
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None):
@@ -458,28 +573,48 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None):
 
 
 # ---------------------------------------------------------------- decode
+def _decode_stack(cfg, stack_params, stack_cache, h, pos, window):
+    kv, st = stack_cache.attn, stack_cache.ssm
+    for i in range(_n_layers(stack_params)):
+        lc = LayerCache(
+            attn=None if kv is None else AttnCache(k=kv.k[i], v=kv.v[i]),
+            ssm=None if st is None else ssm_lib.SSMState(conv=st.conv[i],
+                                                         ssm=st.ssm[i]))
+        h, new = block_decode(cfg, _layer(stack_params, i), h, lc, pos,
+                              window=window)
+        if st is not None:
+            st.conv[i].copy_(new.ssm.conv)
+            st.ssm[i].copy_(new.ssm.ssm)
+    return h
+
+
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int, *,
                 device=None):
     """One decode step: tokens (B, 1) at position ``pos`` (a Python int).
     Returns (logits (B, V) float32, cache), the cache written in place."""
     _, tokens = _placed(params, tokens, device)
     pos = int(pos)
+    window = attention_window(cfg)
     h = embed_tokens(cfg, params, tokens)
-    kv, st = cache["layers"].attn, cache["layers"].ssm
-    for i in range(_n_layers(params["layers"])):
-        lc = LayerCache(
-            attn=None if kv is None else AttnCache(k=kv.k[i], v=kv.v[i]),
-            ssm=None if st is None else ssm_lib.SSMState(conv=st.conv[i],
-                                                         ssm=st.ssm[i]))
-        h, new = block_decode(cfg, _layer(params["layers"], i), h, lc, pos)
-        if st is not None:
-            st.conv[i].copy_(new.ssm.conv)
-            st.ssm[i].copy_(new.ssm.ssm)
+    if cfg.first_k_dense:
+        h = _decode_stack(_dense(cfg), params["front_layers"],
+                          cache["front_layers"], h, pos, window)
+    h = _decode_stack(cfg, params["layers"], cache["layers"], h, pos, window)
     h = apply_norm(h, params["final_norm"], cfg.norm)
     return lm_head(cfg, params, h)[:, 0], cache
 
 
 # --------------------------------------------------------------- prefill
+def _prefill_stack(cfg, stack_params, h, positions, window, moe):
+    caches = []
+    for i in range(_n_layers(stack_params)):
+        h, _, lc = block_forward(cfg, _layer(stack_params, i), h, positions,
+                                 window=window, build_cache=True,
+                                 moe_layer=moe)
+        caches.append(lc)
+    return h, _stack_caches(caches)
+
+
 def prefill(cfg: ArchConfig, params, batch, max_seq: Optional[int] = None,
             *, device=None):
     """Full-prompt pass that also builds the decode cache. Returns (logits
@@ -489,14 +624,16 @@ def prefill(cfg: ArchConfig, params, batch, max_seq: Optional[int] = None,
     dev, tokens = _placed(params, batch["tokens"], device)
     h = embed_tokens(cfg, params, tokens)
     positions = torch.arange(h.shape[1], device=dev)
-    caches = []
-    for i in range(_n_layers(params["layers"])):
-        h, _, lc = block_forward(cfg, _layer(params["layers"], i), h,
-                                 positions, build_cache=True)
-        caches.append(lc)
+    window = attention_window(cfg)
+    cache = {}
+    if cfg.first_k_dense:
+        h, cache["front_layers"] = _prefill_stack(
+            _dense(cfg), params["front_layers"], h, positions, window, False)
+    h, cache["layers"] = _prefill_stack(cfg, params["layers"], h, positions,
+                                        window, True)
     h = apply_norm(h, params["final_norm"], cfg.norm)
     logits = lm_head(cfg, params, h[:, -1:, :])[:, 0]
-    return logits, {"layers": _stack_caches(caches)}
+    return logits, cache
 
 
 def _stack_caches(caches):

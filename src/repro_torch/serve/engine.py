@@ -7,10 +7,12 @@ queue. The KV cache is allocated once at ``max_seq`` and written in
 place. Slots decode at a shared position, so each step advances the
 lagging position group; the other rows keep their cache, as the
 reference's masked merge of every cache leaf keeps them: the decode
-writes slot ``pos`` of every row's K/V, and the rows outside the group
-get their saved column back; an SSM decode rewrites every row's whole
-conv and SSM state, and the rows outside the group get theirs back
-whole.
+writes one slot of every row's K/V in every cache stack (``pos``, or
+``pos % kv_len`` on the hybrid's ring buffer), and the rows outside the
+group get their saved column back; an SSM decode rewrites every row's
+whole conv and SSM state, and the rows outside the group get theirs back
+whole. A prompt longer than the hybrid's attention window is refused, as
+the reference refuses it (that needs a chunked prefill).
 
 Token choice happens on the host, on the logits copied out as float32:
 ``np.argmax``, or a draw from ``np.random.default_rng(seed + 7919 *
@@ -29,7 +31,9 @@ import torch
 
 from ..kernels.ops import resolve_device
 from ..models import Model
+from ..models.blocks import cache_slot
 from ..models.common import ArchConfig
+from ..models.lm import attention_window
 from ..tree import leaves, leaves_with_path
 
 __all__ = ["ServeConfig", "ServeEngine", "Request"]
@@ -127,6 +131,13 @@ class ServeEngine:
             raise ValueError(f"prompt too long: {S} tokens + "
                              f"{req.max_new_tokens} new > max_seq "
                              f"{self.scfg.max_seq}")
+        window = attention_window(self.cfg)
+        if window and S > window:
+            # ring-buffer KV: slot = pos % ring is the identity only while
+            # the prompt fits the ring
+            raise ValueError("prompt longer than the attention window "
+                             "needs chunked prefill (not implemented in "
+                             "this engine)")
         logits, cache1 = self.model.prefill(
             self.params, {"tokens": req.prompt[None, :]}, device=self.device)
         self._stats["prefills"] += 1
@@ -157,21 +168,27 @@ class ServeEngine:
 
     def _decode(self, tokens: np.ndarray, pos: int, mask: np.ndarray):
         """The decode step at ``pos`` for every slot; the cache rows outside
-        ``mask`` get back what the step rewrote: K/V slot ``pos``, the SSM
-        state whole."""
-        lc = self.cache["layers"]
-        kv = [] if lc.attn is None else [lc.attn.k, lc.attn.v]
-        st = [] if lc.ssm is None else [lc.ssm.conv, lc.ssm.ssm]
+        ``mask`` get back what the step rewrote in each cache stack: K/V
+        slot ``pos`` (``pos % kv_len`` on a ring buffer, which is no longer
+        than the window), the SSM state whole."""
+        kv, st = [], []
+        for lc in self.cache.values():
+            if lc.attn is not None:
+                kv += [lc.attn.k, lc.attn.v]
+            if lc.ssm is not None:
+                st += [lc.ssm.conv, lc.ssm.ssm]
         rest = np.flatnonzero(~mask)
         if rest.size:
             rows = torch.from_numpy(rest).to(self.device)
-            saved_kv = [t[:, rows, pos] for t in kv]
+            window = attention_window(self.cfg)
+            slot = [cache_slot(pos, t.shape[2], window) for t in kv]
+            saved_kv = [t[:, rows, j] for t, j in zip(kv, slot)]
             saved_st = [t[:, rows] for t in st]
         logits, _ = self.model.decode_step(self.params, self.cache, tokens,
                                            pos, device=self.device)
         if rest.size:
-            for t, old in zip(kv, saved_kv):
-                t[:, rows, pos] = old
+            for t, j, old in zip(kv, slot, saved_kv):
+                t[:, rows, j] = old
             for t, old in zip(st, saved_st):
                 t[:, rows] = old
         return logits

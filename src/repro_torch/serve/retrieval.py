@@ -136,7 +136,7 @@ class RetrievalService:
         cfg = self.cfg
         h = lm_lib.embed_tokens(cfg, self.params, tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        h = lm_lib._apply_stack(cfg, self.params["layers"], h, positions)
+        h, _ = lm_lib._apply_stack(cfg, self.params["layers"], h, positions)
         h = apply_norm(h, self.params["final_norm"], cfg.norm)
         return h.mean(dim=1).float()
 

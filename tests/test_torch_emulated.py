@@ -514,6 +514,12 @@ FLASH_CASES = [
     (1, 20, 30, 2, 1, 320, True, 0, None),
     (2, 3, 40, 2, 2, 512, False, 8, 37),
     (1, 5, 40, 96, 1, 64, True, 0, None),
+    # G = 5 (hymba, D = 64) and G = 7 (arctic, D = 128): head tiles of 60
+    # and 63 live rows; windowed causal, and decode with valid_len
+    (1, 40, 40, 10, 2, 64, True, 16, None),
+    (2, 1, 60, 5, 1, 64, False, 0, 37),
+    (1, 30, 30, 7, 1, 128, True, 8, None),
+    (2, 1, 60, 7, 1, 128, False, 0, 60),
 ]
 
 
@@ -544,7 +550,8 @@ def test_emulated_flash_attention_matches_plain(emu, case, dtype):
 
 # bf16 only, the tensor-core path: G = 8 with 64-row tiles that straddle
 # positions, Sk over three kv tiles, a window of 24, decode at D = 256 with
-# valid_len = 37, and G = 3 (tiles that straddle a head group)
+# valid_len = 37, G = 3 (tiles that straddle a head group), and G = 5 and
+# G = 7 (60 and 63 live rows of a tile) windowed and with valid_len
 FLASH_BF16_CASES = [
     (1, 130, 130, 8, 1, 128, True, 0, None),
     (1, 130, 130, 8, 1, 256, True, 0, None),
@@ -553,6 +560,10 @@ FLASH_BF16_CASES = [
     (2, 1, 160, 8, 1, 256, False, 0, 37),
     (1, 4, 160, 8, 1, 256, False, 16, 100),
     (1, 37, 50, 6, 2, 64, True, 0, None),
+    (1, 100, 100, 5, 1, 64, True, 24, None),
+    (2, 1, 160, 5, 1, 64, False, 0, 100),
+    (1, 70, 70, 7, 1, 128, True, 16, None),
+    (2, 1, 160, 7, 1, 128, False, 0, 130),
 ]
 
 

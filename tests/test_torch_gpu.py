@@ -462,6 +462,12 @@ FLASH_CASES = [
     (2, 1, 160, 4, 1, 512, False, 0, 37),
     (2, 40, 60, 96, 1, 64, True, 0, None),
     (1, 3, 160, 96, 1, 256, False, 16, 100),
+    # G = 5 (hymba, D = 64) and G = 7 (arctic, D = 128): head tiles of 60
+    # and 63 live rows, windowed causal and with valid_len
+    (2, 160, 160, 10, 2, 64, True, 64, None),
+    (2, 1, 160, 5, 1, 64, False, 0, 100),
+    (1, 130, 130, 14, 2, 128, True, 24, None),
+    (2, 1, 160, 7, 1, 128, False, 0, 160),
 ]
 
 
@@ -685,12 +691,13 @@ def test_flash_attention_at_the_gemma_decode_shape(cuda, valid_len):
                  <= 4e-3 * want.abs().clamp(min=1.0)).all())
 
 
-def _serve_tiny(device, params, cfg):
+def _serve_tiny(device, params, cfg, max_seq=48, new=8,
+                lens=(5, 11, 17, 5, 11, 17, 5)):
     from repro_torch.serve import ServeConfig, ServeEngine
 
     rng = np.random.default_rng(0)
     eng = ServeEngine(cfg, params, ServeConfig(
-        max_batch=3, max_seq=48, max_new_tokens=8, device=device))
+        max_batch=3, max_seq=max_seq, max_new_tokens=new, device=device))
     margins = {}
     choose = eng._select_token
 
@@ -701,7 +708,7 @@ def _serve_tiny(device, params, cfg):
         return choose(row, slot)
 
     eng._select_token = recorded
-    for n in (5, 11, 17, 5, 11, 17, 5):
+    for n in lens:
         eng.submit(rng.integers(1, cfg.vocab_size, n))
     return eng, eng.run_until_drained(), margins
 
@@ -803,6 +810,73 @@ def test_tiny_train_step_on_card_equals_cpu(cuda):
     for name in m_h:
         np.testing.assert_allclose(float(m_c[name]), float(m_h[name]),
                                    rtol=1e-5)
+    for x, y in zip(leaves(p_c, torch.is_tensor), leaves(p_h, torch.is_tensor)):
+        assert float((x.cpu() - y).abs().max()) <= 1e-5
+    for x, y in zip(leaves(o_c, torch.is_tensor), leaves(o_h, torch.is_tensor)):
+        scale = max(1.0, float(y.float().abs().max()))
+        assert float((x.cpu().float() - y.float()).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("arch,max_seq,new,lens", [
+    ("hymba_1_5b", 64, 30, (20, 28, 24, 9)),
+    ("arctic_480b", 48, 8, (5, 11, 17, 5, 11, 17, 5)),
+    ("kimi_k2_1t_a32b", 48, 8, (5, 11, 17, 5, 11, 17, 5)),
+])
+def test_tiny_hybrid_and_moe_serve_engines_on_card_equal_cpu(
+        cuda, arch, max_seq, new, lens):
+    """The tiny hybrid (a ring of 32 slots that every request decodes
+    past: K7 with valid_len = min(pos + 1, 32)) and the tiny MoE models
+    (kimi's leading dense layer a second cache stack) in float32 on the
+    card give the CPU's tokens and stats, compared up to the first step
+    whose CPU top-2 margin is below 1e-3; K7 runs once a layer and step."""
+    cfg = get_tiny(arch).replace(compute_dtype="float32")
+    params = Model(cfg).init_params(0, device=cuda)
+    before = fa.LAUNCHES["flash_attention"]
+    card, got, _ = _serve_tiny(cuda, params, cfg, max_seq, new, lens)
+    st = card.stats
+    assert fa.LAUNCHES["flash_attention"] - before == cfg.n_layers * (
+        st["prefills"] + st["decode_steps"])
+    host, want, margins = _serve_tiny("cpu", _to(params, "cpu"), cfg,
+                                      max_seq, new, lens)
+    assert st == host.stats
+    for rid, toks in want.items():
+        tie = next((j for j, m in enumerate(margins[rid]) if m < 1e-3),
+                   len(toks))
+        assert got[rid][:tie] == toks[:tie], rid
+
+
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "arctic_480b",
+                                  "kimi_k2_1t_a32b"])
+def test_tiny_hybrid_and_moe_train_steps_on_card_equal_cpu(cuda, arch):
+    """One tiny train step in float32 on the card over 8 x 48 tokens (past
+    the hybrid's window of 32; the MoE block's routing, dispatch and
+    combine in torch ops) against the same step on the CPU: metrics (the
+    MoE terms among them) within 1e-5 relative, parameters within 1e-5
+    absolute, moments within 1e-4 · max(1, max|cpu|); K7 runs twice a
+    layer (the forward and remat's recompute)."""
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = get_tiny(arch).replace(compute_dtype="float32")
+    ocfg = OptimConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10)
+    batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=48,
+                                     global_batch=8)).global_batch_at(0)
+    card = make_train_step(cfg, ocfg, TrainConfig(), device=cuda)
+    host = make_train_step(cfg, ocfg, TrainConfig(), device="cpu")
+    p_c, o_c = card["init"](0)
+    p_h, o_h = _to(p_c, "cpu"), _to(o_c, "cpu")
+    before = fa.LAUNCHES["flash_attention"]
+    p_c, o_c, m_c = card["step"](p_c, o_c, batch)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 2 * cfg.n_layers
+    p_h, o_h, m_h = host["step"](p_h, o_h, batch)
+    assert set(m_c) == set(m_h)
+    assert cfg.is_moe == ("moe_lb" in m_h)
+    for name in m_h:
+        np.testing.assert_allclose(float(m_c[name]), float(m_h[name]),
+                                   rtol=1e-5, atol=1e-7)
     for x, y in zip(leaves(p_c, torch.is_tensor), leaves(p_h, torch.is_tensor)):
         assert float((x.cpu() - y).abs().max()) <= 1e-5
     for x, y in zip(leaves(o_c, torch.is_tensor), leaves(o_h, torch.is_tensor)):

@@ -174,6 +174,15 @@ def _layer0(params):
     return jax.tree.map(lambda a: a[0], params["layers"])
 
 
+def _tree(template):
+    """{path: (shape, axes, kind, init)} of either package's parameter
+    template (both ``PSpec``s are NamedTuples of those fields)."""
+    if isinstance(template, dict):
+        return {(k,) + path: spec for k, v in template.items()
+                for path, spec in _tree(v).items()}
+    return {(): tuple(template)}
+
+
 def test_config_and_template_match_reference(tiny):
     r_cfg, t_cfg, r_params, t_params = tiny
     assert get_config("gemma_2b").replace(compute_dtype="float32") \
@@ -218,9 +227,10 @@ def test_norm_rope_and_mlp_match_reference(tiny):
     for act in ("gelu",):              # the ungated MLP (whisper): ported
         _close(t_layers.mlp(torch.from_numpy(x), t_lp["mlp"], act),
                r_layers.mlp(jnp.asarray(x), r_lp["mlp"], act), TOL)
-    # the MoE feed-forward is still ROADMAP A11
+    # the MoE feed-forward is ported (tests/test_torch_moe.py); the vlm
+    # family's block is still ROADMAP A11
     with pytest.raises(NotImplementedError, match="A11"):
-        t_blocks.block_forward(t_cfg.replace(n_experts=4), t_lp,
+        t_blocks.block_forward(t_cfg.replace(family="vlm"), t_lp,
                                torch.from_numpy(x), torch.arange(24))
 
 
@@ -270,16 +280,17 @@ def test_model_init_on_requested_device_and_unported_families_raise(tiny):
                                   device="cpu")
     assert torch.equal(p1["embed"], p2["embed"])
     assert p1["layers"]["attn"]["wq"].shape == (2, 64, 4, 32)
-    # hybrid, MoE and vlm are still ROADMAP A11; the ssm family, the
+    # vlm is still ROADMAP A11; the ssm, hybrid and MoE families, the
     # layernorm and whisper-tiny are ported and match the reference
-    with pytest.raises(NotImplementedError, match="A11"):
-        t_lm.model_template(t_cfg.replace(family="hybrid"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        t_lm.model_template(t_cfg.replace(n_experts=4))
     with pytest.raises(NotImplementedError, match="A11"):
         t_lm.model_template(t_cfg.replace(family="vlm"))
     with pytest.raises(KeyError, match="A11"):
-        get_config("hymba_1_5b")
+        get_config("llava_next_34b")
+    for kw in (dict(family="hybrid", ssm_state=8, ssm_heads=4,
+                    ssm_head_dim=16, sliding_window=16),
+               dict(family="moe", n_experts=4, experts_per_token=2)):
+        assert _tree(t_lm.model_template(t_cfg.replace(**kw))) == _tree(
+            r_lm.model_template(r_get_tiny("gemma_2b").replace(**kw)))
     ssm = dict(family="ssm", ssm_state=8, ssm_heads=2, ssm_head_dim=8,
                d_ff=0)
     for kw in (ssm, dict(norm="layernorm")):

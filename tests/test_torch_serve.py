@@ -139,8 +139,16 @@ def test_decode_attention_matches_reference(valid_len, window):
         tq, tk, tv, causal=False, window=window, valid_len=valid_len))
     _close(t_layers._decode_attention_impl(tq, tk, tv, valid_len,
                                            window=window), want, ATTN_TOL)
-    with pytest.raises(NotImplementedError, match="A11"):
-        t_layers.decode_attention(tq, tk, tv, valid_len, ring=True)
+    # the ring buffer (ported): K7 over the slots below the count, the
+    # window ignored, as the reference's ring branch has it
+    want = r_layers._decode_attention_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(valid_len),
+        window=window, ring=True)
+    _close(t_layers.decode_attention(tq, tk, tv, valid_len, window=window,
+                                     ring=True), want, ATTN_TOL)
+    _close(t_layers._decode_attention_impl(tq, tk, tv, valid_len,
+                                           window=window, ring=True), want,
+           ATTN_TOL)
 
 
 # ------------------------------------------------------ prefill and decode
@@ -198,13 +206,21 @@ def test_cache_template_and_init_match_reference(tiny):
     bf = get_tiny("gemma_2b")                    # bf16 compute
     assert Model(bf).cache_template(1, 4)["layers"].attn.k.dtype == \
         torch.bfloat16
+    # the hybrid's cache (ported): a ring of min(max_seq, window) slots
+    # beside the SSM state, as the reference's; vlm is still ROADMAP A11
+    hyb = dict(family="hybrid", ssm_state=8, ssm_heads=4, ssm_head_dim=16,
+               sliding_window=16)
+    assert [tuple(t.shape) for t in jax.tree.leaves(t_lm.cache_template(
+        t_cfg.replace(**hyb), 1, 20), is_leaf=torch.is_tensor)] == [
+        s.shape for s in jax.tree.leaves(r_lm.cache_template(
+            r_cfg.replace(**hyb), 1, 20))]
+    assert t_lm.cache_template(t_cfg.replace(**hyb), 1, 20)[
+        "layers"].attn.k.shape[2] == 16
     with pytest.raises(NotImplementedError, match="A11"):
-        t_lm.cache_template(t_cfg.replace(family="hybrid"), 1, 8)
-    for family in ("hybrid", "vlm"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            Model(t_cfg.replace(family=family)).prefill(
-                t_params, {"tokens": np.ones((1, 3), np.int32)},
-                device="cpu")
+        t_lm.cache_template(t_cfg.replace(family="vlm"), 1, 8)
+    with pytest.raises(NotImplementedError, match="A11"):
+        Model(t_cfg.replace(family="vlm")).prefill(
+            t_params, {"tokens": np.ones((1, 3), np.int32)}, device="cpu")
     # the ssm family's cache (ported) has the reference's leaves
     ssm = get_tiny("mamba2_1_3b").replace(compute_dtype="float32")
     r_ssm_tpl = RModel(r_get_tiny("mamba2_1_3b").replace(
