@@ -32,7 +32,8 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    bit for bit, and K5 at every code width (W = 1 to 8) and the edge
    shapes of ``K5_EDGE`` (B = 1, ragged query tiles, blk from 1 to past
    n, codes off their 16-byte boundary); K7 (flash attention) on ``FLASH_CASES`` (G = 1 to 8, 3,
-   5, 7 and 96, ragged tiles, windows, decode rows, head dims 16 to 512 with
+   5, 7 and 96, ragged tiles, windows, decode rows, llava's prefill and
+   decode operands at G = 7 and 8, head dims 16 to 512 with
    16, 20, 48, 112, 320 and 512 between and above the kernel's widths) in
    float32 and bf16 against its
    plain version in float32 (float32 within 2e-5, bf16 within
@@ -237,7 +238,8 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       heads over 5 kv heads of 64 beside 25 SSM heads of 64 with state 16,
       d_ff 5504, vocab 32,001, sliding window 2,048; 1.39 B float32
       parameters from seed 0, bf16 compute): (a) token serving exactly as
-      f (the K/V cache a ring of min(256, 2,048) slots); (b) the ring set
+      f at 16 of its 32 layers (``HYMBA_SERVE_LAYERS``, the cut as h's;
+      the K/V cache a ring of min(256, 2,048) slots); (b) the ring set
       (``hymba_path``): 8 prompts of 2,000 tokens, 128 new tokens each,
       ``max_seq`` 2,176, so the ring of 2,048 slots wraps at the 48th
       step and K7 decodes with ``valid_len`` 2,048; every token the
@@ -261,11 +263,33 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       ``dropped_fraction``); one profiled decode step against the bytes
       bound of every weight read once (C = T = 8 runs every expert).
       Training the MoE family at full width needs several cards.
+   p. (run first, before a, while the card holds nothing else)
+      llava-next-34b (the vlm family) at full width and depth (60 layers,
+      d_model 7168, 56 q heads over 8 kv heads of 128, d_ff 20,480, vocab
+      64,000, 576 vision tokens; 34.4 B bf16 parameters, 68.9 GB, drawn on
+      the card from seed 0; ``llava_path``): one ``Model.prefill`` of 8
+      rows of random bf16 patch embeddings (8, 576, 7168) and 100-token
+      prompts, the cache padded to 576 + 100 + 32 positions through
+      ``init_cache``, 32 ``Model.decode_step``s from pos 676 (K7 60 x (1
+      + 32) times), every token the teacher-forced forward's argmax where
+      its margin exceeds ``TIE_FACTOR`` x the bf16 gap, the prefill's
+      logits within ``GAP_BOUND`` of the largest (the decode steps' bf16
+      gap exceeds it at 60 layers and is reported); 2 requests again in
+      float32 compute, 16 steps, within ``GAP_BOUND_F32`` of the float32
+      forward and every token its argmax; one profiled decode step
+      against the bytes bound of every weight and the cache read once; one
+      loss forward at full depth on 2 x (576 + 128) positions;
+      ``make_train_step`` at 4 of the 60 layers (one card holds no more of
+      its training state), 4 steps of 2 x (576 + 128), losses finite and
+      falling; then the optimized profile (``optimized_overrides``: 64 q
+      heads, G = 8) at full depth, one prefill and 8 decode steps held as
+      before. The vlm has no serving-engine path: the reference's engine
+      prefills tokens only.
    Every kernel launch counter is set to 0 just before each path (a, d,
    b) at each p, and before c, f, g's 8 steps, h, i's steps, each model
    of j, each example of k, l's generation and its 8 steps, m's serving
-   and training, n's serving, ring set and training, and each model of
-   o, and read just after it; K2 launches count by
+   and training, n's serving, ring set and training, each model of o,
+   and p, and read just after it; K2 launches count by
    form (grid, cluster), K3 by kernel (fused, map), and on path a also by
    wrapper and query rows;
 4. each kernel against its plain version again, on operands captured from
@@ -287,8 +311,10 @@ each of which fails the run (non-zero exit) on any error or mismatch:
    (8, 1500, 6, 64)) and cross-attention decode (q (8, 1, 6, 64),
    ``valid_len`` 1,500), at n's windowed forward (q (8, 2127, 25, 64),
    window 2,048), ring decode (q (8, 1, 25, 64) against (8, 2048, 5, 64),
-   ``valid_len`` 2,048) and 4,096-token training call, and at o's
-   arctic and kimi prefill and decode calls, each also beside
+   ``valid_len`` 2,048) and 4,096-token training call, at o's arctic
+   and kimi prefill and decode calls, and at p's llava prefill (q (8,
+   676, 56, 128) causal) and decode (q (8, 1, 56, 128) over 708 valid
+   keys) calls and the profile's (64 q heads), each also beside
    ``scaled_dot_product_attention`` on the same tensors and valid keys
    (with a window, under the same boolean mask; its ``library_ms``, c's
    call in the ``kernels`` record; the port never calls it).
@@ -488,7 +514,7 @@ def _device_ms(prof, name):
     return total or None
 
 
-def profile_batch(fn, label, out_dir, expect=(), ranges=None):
+def profile_batch(fn, label, out_dir, expect=(), ranges=None, stats=None):
     """One traced call of ``fn`` under ``torch.profiler``: wall time, the
     card's busy time (the sum of its kernels), the kernels that took it by
     device time, and the host's ops by their own time. The Chrome trace
@@ -498,8 +524,9 @@ def profile_batch(fn, label, out_dir, expect=(), ranges=None):
     share, and if it still lacks an expected kernel, as incomplete, its
     busy time a lower bound. Where ``ranges`` is given, each of its keys
     names ``record_function`` ranges whose kernels' device ms it gets
-    (None where the trace attributes none). Returns the kernels as (ms,
-    count, name), longest first ([] for an empty profile)."""
+    (None where the trace attributes none); ``stats`` (a dict) gets the
+    wall and busy ms. Returns the kernels as (ms, count, name), longest
+    first ([] for an empty profile)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -534,6 +561,8 @@ def profile_batch(fn, label, out_dir, expect=(), ranges=None):
             f"{wall:.3f} ms under the profiler); not a measurement")
         return []
     rows.sort(reverse=True)
+    if stats is not None:
+        stats.update(wall_ms=wall, busy_ms=busy)
     for name in ranges or ():
         ranges[name] = _device_ms(prof, name)
     if missing:
@@ -1757,7 +1786,9 @@ FP32_FLOPS = 67e12
 # (256-column chunks and output slices), G in {1, 2, 3, 4, 5, 7, 8, 96}
 # (G = 3: 64-row tiles that straddle a head group; G = 5 and 7, hymba's
 # and arctic's: tiles of 60 and 63 live rows, windowed causal and with
-# valid_len; G = 96: two head tiles)
+# valid_len; G = 96: two head tiles); llava-next-34b's operands, its
+# prefill (8 x 676 positions, G = 7) and decode (700 of 708 keys valid),
+# and the same under its optimized profile (G = 8)
 FLASH_CASES = [
     (2, 128, 128, 8, 8, 64, True, 0, None),
     (2, 128, 128, 8, 2, 128, False, 0, None),
@@ -1788,6 +1819,10 @@ FLASH_CASES = [
     (2, 1, 160, 5, 1, 64, False, 0, 100),
     (2, 130, 130, 14, 2, 128, True, 24, None),
     (2, 1, 160, 7, 1, 128, False, 0, 160),
+    (8, 676, 676, 56, 8, 128, True, 0, None),
+    (8, 1, 708, 56, 8, 128, False, 0, 700),
+    (8, 676, 676, 64, 8, 128, True, 0, None),
+    (8, 1, 708, 64, 8, 128, False, 0, 700),
 ]
 
 
@@ -2553,11 +2588,11 @@ def _train_steps(built, params, opt, pipe, steps, first, fa, n_layers,
 
 
 def _steps_report(losses, step_ms, launches, n_layers, n_params, B, S,
-                  held, tag):
-    """The gates on ``TRAIN_STEPS`` train steps (every loss finite, the
-    mean of the last 3 below the first, K7 launched 2 x layers a step, the
-    peak under the card's memory) and their metrics, logged: the median
-    step of steps 2-8, tokens/s, ``mfu``, the peak beyond ``held``."""
+                  held, tag, steps=TRAIN_STEPS):
+    """The gates on ``steps`` train steps (every loss finite, the mean of
+    the last 3 below the first, K7 launched 2 x layers a step, the peak
+    under the card's memory) and their metrics, logged: the median step of
+    steps 2 on, tokens/s, ``mfu``, the peak beyond ``held``."""
     import numpy as np
     import torch
 
@@ -2567,8 +2602,8 @@ def _steps_report(losses, step_ms, launches, n_layers, n_params, B, S,
         raise AssertionError(f"non-finite losses {losses}")
     if not np.mean(losses[-3:]) < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    if launches != 2 * n_layers * TRAIN_STEPS:
-        raise AssertionError(f"{launches} K7 launches in {TRAIN_STEPS} steps")
+    if launches != 2 * n_layers * steps:
+        raise AssertionError(f"{launches} K7 launches in {steps} steps")
     if not peak < total:
         raise AssertionError(f"peak {peak} bytes of {total}")
     tokens = B * S
@@ -2577,11 +2612,11 @@ def _steps_report(losses, step_ms, launches, n_layers, n_params, B, S,
                first_ms=step_ms[0], tokens_s=tokens / (med / 1e3),
                mfu=6.0 * n_params * tokens / (med / 1e3 * BF16_TENSOR_FLOPS),
                peak_gb=(peak - held) / 1e9, total_gb=total / 1e9)
-    log(f"  {TRAIN_STEPS} steps, B = {B} x {S} tokens: losses "
+    log(f"  {steps} steps, B = {B} x {S} tokens: losses "
         + ", ".join(f"{x:.4f}" for x in losses)
-        + f"; K7 launches {launches} = 2 x {n_layers} x {TRAIN_STEPS} {tag}")
+        + f"; K7 launches {launches} = 2 x {n_layers} x {steps} {tag}")
     log(f"  train step (host clock to the loss on the host): median of steps "
-        f"2-{TRAIN_STEPS} {med:.3f} ms (first {step_ms[0]:.1f} ms), "
+        f"2-{steps} {med:.3f} ms (first {step_ms[0]:.1f} ms), "
         f"{res['tokens_s']:,.0f} tokens/s, model flops share (mfu) "
         f"{res['mfu']:.4f} = 6 x {n_params:.4g} x {tokens} / ({med:.3f} ms x "
         f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s); peak allocated by the "
@@ -2862,6 +2897,9 @@ def train_path(dev, tag, zero_counts):
 LLAMA_TRAIN_LAYERS = 8          # llama3-8b's training depth on one card
 LLAMA_SERVE_LAYERS = 16         # llama3-8b's serving depth (3h; of 32)
 MAMBA_SERVE_LAYERS = 24         # mamba2-1.3b's serving depth (3m; of 48)
+HYMBA_SERVE_LAYERS = 16         # hymba-1.5b's depth through 3f's engine
+                                # (3n (a); of 32; its ring set and
+                                # training run all 32)
 GRANITE_LAYERS = 4              # granite-3-8b's and granite-34b's depth
 GRANITE_SERVE = dict(max_batch=8, max_seq=256, max_new_tokens=9)
 GRANITE_PROMPT = 96             # tokens of the one granite request
@@ -3523,10 +3561,12 @@ def _engine_probe(eng, rows, prefill_ms, step_ms):
     eng._step = timed_step
 
 
-def teacher_forced_batch(model, params, prompts, served, rows, bound, dev):
+def teacher_forced_batch(model, params, prompts, served, rows, bound, dev,
+                         extra=None):
     """``teacher_forced`` for requests whose prompts have one length, in
-    one causal forward over all of them (B = len(prompts)). Returns (gap,
-    scale, margin-limited tokens)."""
+    one causal forward over all of them (B = len(prompts)); ``extra``
+    holds the batch's other inputs (the vlm's ``vision_embeds``). Returns
+    (gap, scale, margin-limited tokens)."""
     import numpy as np
     import torch
 
@@ -3534,7 +3574,8 @@ def teacher_forced_batch(model, params, prompts, served, rows, bound, dev):
     seqs = np.stack([np.concatenate([p, served[i][:-1]])
                      for i, p in enumerate(prompts)])
     with torch.no_grad():
-        logits, _ = model.forward(params, {"tokens": seqs}, device=dev)
+        logits, _ = model.forward(params, {"tokens": seqs, **(extra or {})},
+                                  device=dev)
         f = logits[:, n - 1:].cpu().numpy()
         del logits
     gap = max(float(np.abs(np.stack(rows[i]) - f[i]).max())
@@ -3984,18 +4025,19 @@ def moe_one(arch, dev, tag, zero_counts):
     gap = max(c[0] for c in checked)
     scale = max(c[1] for c in checked)
     limited = sum(c[2] for c in checked)
-    held = sum(c[3] for c in checked)
+    n_held = sum(c[3] for c in checked)
     flips = [c[4] - len(prompts[i]) if c[4] is not None else None
              for i, c in enumerate(checked)]
     n_tf = B * MOE_SERVE["max_new_tokens"]
-    res.update(gap=gap, scale=scale, limited=limited, held=held, flips=flips)
+    res.update(gap=gap, scale=scale, limited=limited, held=n_held,
+               flips=flips)
     log(f"  teacher-forced ({B} requests, {n_tf} tokens): "
-        f"{held} tokens held, up to each request's first position whose "
+        f"{n_held} tokens held, up to each request's first position whose "
         f"experts the engine and the forward chose differently (by request, "
         f"relative to the prompt's end; None: none differs): {flips}; decode "
         f"logits within {gap:.4g} of the causal forward's there (largest "
         f"logit {scale:.4g}; bound {GAP_BOUND * scale:.4g}); every held "
-        f"token the forward's argmax, {limited}/{held} margin-limited")
+        f"token the forward's argmax, {limited}/{n_held} margin-limited")
 
     # one loss forward on 8 x 128 tokens
     batch = TokenPipeline(DataConfig(**dict(
@@ -4048,6 +4090,380 @@ def moe_one(arch, dev, tag, zero_counts):
     log(f"  phase 3o {cfg.name}: {res['phase_s']:.1f} s; peak allocated "
         f"{res['peak_gb']:.2f} GB besides {held / 1e9:.2f} GB {tag}")
     return res, {k: (a, kw) for k, (_, a, kw) in calls.items()}
+
+
+# ------------------------------------------------------- the vlm family
+LLAVA_B = 8                     # rows of 3p's prefill and decode steps
+LLAVA_PROMPT = 100              # text tokens of each prompt
+LLAVA_NEW = 32                  # decode steps after the prefill
+LLAVA_PROFILE_NEW = 8           # decode steps under the optimized profile
+LLAVA_TRAIN_LAYERS = 4          # llava's training depth on one card
+LLAVA_TRAIN = dict(seq_len=128, global_batch=2)   # the text of a batch
+LLAVA_TRAIN_STEPS = 4
+LLAVA_F32_ROWS = 2              # requests served again in float32 compute
+LLAVA_F32_NEW = 16              # their decode steps
+
+
+def _patch_embeds(cfg, n, seed, dev):
+    """(n, vision_tokens, d_model) random patch embeddings in bf16, drawn
+    on the card from ``seed``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((n, cfg.vision_tokens, cfg.d_model), generator=g,
+                       device=dev).to(torch.bfloat16)
+
+
+def llava_generate(model, params, prompts, vis, steps, dev):
+    """Greedy generation at B = len(prompts): one ``Model.prefill`` of the
+    patch embeddings and the prompts, the cache padded to vision_tokens +
+    prompt + ``steps`` positions through ``init_cache``, then ``steps``
+    ``Model.decode_step``s from pos = vision_tokens + prompt. Returns
+    (tokens (B, steps + 1), the logits rows they were chosen from (B,
+    steps + 1, V) on the host, prefill ms and each decode step's ms on the
+    host clock to the chosen tokens, the cache)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.tree import leaves
+
+    B, T = prompts.shape
+    n_vis = vis.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, pre = model.prefill(params, {"tokens": prompts,
+                                             "vision_embeds": vis},
+                                    device=dev)
+        rows = [logits.float().cpu().numpy()]
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    cache = model.init_cache(B, n_vis + T + steps, device=dev)
+    for full, part in zip(leaves(cache), leaves(pre)):
+        full[:, :, :part.shape[2]].copy_(part)
+    del pre, logits
+    toks = [rows[0].argmax(-1).astype(np.int32)]
+    step_ms = []
+    with torch.no_grad():
+        for i in range(steps):
+            t0 = time.perf_counter()
+            logits, _ = model.decode_step(params, cache, toks[-1][:, None],
+                                          n_vis + T + i, device=dev)
+            rows.append(logits.float().cpu().numpy())
+            toks.append(rows[-1].argmax(-1).astype(np.int32))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    return np.stack(toks, 1), np.stack(rows, 1), prefill_ms, step_ms, cache
+
+
+def llava_forward_rows(model, params, prompts, vis, toks, dev):
+    """The causal forward over the patch embeddings, the prompts and the
+    generated tokens but the last (teacher forcing): its logits at the
+    positions each token was chosen from, (B, steps + 1, V) on the
+    host."""
+    import numpy as np
+    import torch
+
+    seq = np.concatenate([prompts, toks[:, :-1]], axis=1)
+    with torch.no_grad():
+        logits, _ = model.forward(params, {"tokens": seq,
+                                           "vision_embeds": vis}, device=dev)
+        f = logits[:, prompts.shape[1] - 1:].cpu().numpy()
+    return f
+
+
+def llava_path(dev, tag, zero_counts):
+    """Phase 3p: llava-next-34b at full width and depth (60 layers, 34.4 B
+    bf16 parameters drawn on the card from seed 0): (a) serving, one
+    ``Model.prefill`` of ``LLAVA_B`` rows of 576 patch embeddings and
+    ``LLAVA_PROMPT`` text tokens, then ``LLAVA_NEW`` decode steps from the
+    padded cache, every token the teacher-forced forward's argmax where
+    its margin exceeds ``TIE_FACTOR`` x the bf16 gap, the prefill's logits
+    within ``GAP_BOUND`` of the largest (the decode steps' bf16 gap, GEMMs
+    at M = 8 against M = 5,664 over 60 layers, exceeds it and is
+    reported), and ``LLAVA_F32_ROWS`` requests served again in float32
+    compute for ``LLAVA_F32_NEW`` steps, their decode logits within
+    ``GAP_BOUND_F32`` of the float32 forward's and every token its argmax
+    where the margin is not a tie; one profiled decode step against the
+    bytes bound of every weight and the cache read once; (b) one loss
+    forward at full depth on 2 x (576 + 128) positions; (c)
+    ``make_train_step`` at full width and ``LLAVA_TRAIN_LAYERS`` layers,
+    ``LLAVA_TRAIN_STEPS`` steps of 2 x (576 + 128); (d) the optimized
+    profile (``optimized_overrides``: 64 q heads, G = 8) at full depth,
+    one prefill and ``LLAVA_PROFILE_NEW`` decode steps held in bf16 as in
+    (a).
+    Returns its measurements and K7's calls (prefill and decode, and the
+    profile's)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.profiles import optimized_overrides
+    from repro_torch.data import DataConfig, TokenPipeline
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    from repro_torch.models import Model
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import TrainConfig, make_train_step
+
+    t_phase = time.perf_counter()
+    arch = "llava_next_34b"
+    cfg = get_config(arch)
+    n_vis, T, B = cfg.vision_tokens, LLAVA_PROMPT, LLAVA_B
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED + 4)
+    topics = rng.integers(1, cfg.vocab_size, (N_TOPICS, TOPIC_VOCAB))
+    prompts = np.stack([topics[t][rng.integers(0, TOPIC_VOCAB, T)]
+                        for t in rng.integers(0, N_TOPICS, B)]).astype(
+                            np.int32)
+    vis = _patch_embeds(cfg, B, SEED + 4, dev)
+    res, calls, counts = {}, {}, {}
+    zero_counts()
+
+    def serve(label, model, steps, calls_, counts_):
+        """Draw the parameters, generate, hold the tokens against the
+        teacher-forced forward, profile one decode step. Returns the
+        parameters and the cache."""
+        c = model.cfg
+        t0 = time.perf_counter()
+        params = model.init_params(SEED, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        log(f"  {label}: {c.name} at full width, {c.n_layers} layers, "
+            f"{c.n_heads_padded} q heads over {c.n_kv_heads} kv heads (G = "
+            f"{c.n_heads_padded // c.n_kv_heads}, D = {c.head_dim_}): "
+            f"{c.param_count():,} {c.param_dtype} parameters drawn on the "
+            f"card from seed {SEED} in {init_s:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated {tag}")
+        k0 = fa.LAUNCHES["flash_attention"]
+        layers_mod.flash_attention = _k7_capture(fa, calls_, counts=counts_)
+        try:
+            toks, rows, prefill_ms, step_ms, cache = llava_generate(
+                model, params, prompts, vis, steps, dev)
+        finally:
+            layers_mod.flash_attention = fa.flash_attention
+        k7 = fa.LAUNCHES["flash_attention"] - k0
+        if k7 != c.n_layers * (1 + steps):
+            raise AssertionError(f"{label}: {k7} K7 launches for 1 prefill "
+                                 f"and {steps} decode steps of {c.n_layers} "
+                                 f"layers")
+        if not np.isfinite(rows).all():
+            raise AssertionError(f"{label}: non-finite logits")
+        if calls_["decode"][2]["valid_len"] != n_vis + T + steps:
+            raise AssertionError(f"{label}: K7 decoded over "
+                                 f"{calls_['decode'][2]['valid_len']} keys")
+        step = statistics.median(step_ms)
+        out = dict(init_s=init_s, prefill_ms=prefill_ms, step_ms=step,
+                   step_ms_all=step_ms, tokens_s=B / (step / 1e3),
+                   launches=k7)
+        log(f"  {label}: prefill of {B} x ({n_vis} patch embeddings + {T} "
+            f"tokens) {prefill_ms:.1f} ms (host clock to the logits on the "
+            f"host); {steps} decode steps at B = {B} from pos {n_vis + T}, "
+            f"median {step:.3f} ms (first {step_ms[0]:.3f}, host clock to "
+            f"the chosen tokens), {out['tokens_s']:.1f} tokens/s; K7 "
+            f"launches {k7} = {c.n_layers} x (1 + {steps}) {tag}")
+        k0 = fa.LAUNCHES["flash_attention"]
+        f = llava_forward_rows(model, params, prompts, vis, toks, dev)
+        if fa.LAUNCHES["flash_attention"] - k0 != c.n_layers:
+            raise AssertionError(f"{label}: the forward launched K7 "
+                                 f"{fa.LAUNCHES['flash_attention'] - k0} "
+                                 f"times")
+        # bf16: the prefill's row (the shapes of the forward's GEMMs) within
+        # GAP_BOUND; the decode rows' gap (GEMMs at M = 8 against the
+        # forward's M = 5,664, over 60 layers) is measured and bounds the
+        # margins, but exceeds GAP_BOUND at this depth: float32 compute
+        # holds the decode below
+        scale = float(np.abs(f).max())
+        gap0 = float(np.abs(rows[:, 0] - f[:, 0]).max())
+        gap = float(np.abs(rows - f).max())
+        if not gap0 <= GAP_BOUND * scale:
+            raise AssertionError(f"{label}: prefill logits differ from the "
+                                 f"causal forward's by {gap0} (largest "
+                                 f"logit {scale})")
+        srt = np.sort(f, axis=-1)
+        clear = srt[..., -1] - srt[..., -2] > TIE_FACTOR * gap
+        bad = clear & (toks != f.argmax(-1))
+        if bad.any():
+            i, j = np.argwhere(bad)[0]
+            raise AssertionError(f"{label} request {i} token {j}: "
+                                 f"{toks[i, j]}, the forward's argmax "
+                                 f"{f[i, j].argmax()}")
+        n_tf = B * (steps + 1)
+        out.update(gap0=gap0, gap=gap, scale=scale,
+                   limited=int(n_tf - clear.sum()), checked=n_tf,
+                   launches=out["launches"] + c.n_layers)
+        log(f"  {label} teacher-forced, bf16 ({B} requests, {n_tf} tokens, "
+            f"one forward over {n_vis} + {T + steps} positions): the "
+            f"prefill's logits within {gap0:.4g} of the forward's (largest "
+            f"logit {scale:.4g}; bound {GAP_BOUND * scale:.4g}); the decode "
+            f"steps' within {gap:.4g} ({gap / scale:.4f} of the largest "
+            f"logit, GAP_BOUND {GAP_BOUND:.4f}); every token the forward's "
+            f"argmax but {out['limited']}/{n_tf} margin-limited (margin <= "
+            f"{TIE_FACTOR:g} x {gap:.4g}) {tag}")
+        # one profiled decode step: the last one again (the same token at
+        # the same position writes the same K/V)
+        pos = n_vis + T + steps - 1
+        last = toks[:, steps - 1:steps]
+        saved = dict(fa.LAUNCHES)
+        pst = {}
+        with torch.no_grad():
+            prof = profile_batch(
+                lambda: model.decode_step(params, cache, last, pos,
+                                          device=dev)[0].float().cpu(),
+                f"decode_{arch}_{label.replace(' ', '_')}_B{B}",
+                ROOT / "chiprun_out",
+                expect=("flash_attention",), stats=pst)
+        fa.LAUNCHES.update(saved)
+
+        def card_ms(words):
+            return sum(dt for dt, _, key in prof
+                       if any(w in key.lower() for w in words))
+
+        from repro_torch.tree import leaves
+        cache_bytes = sum(t.numel() * t.element_size() for t in leaves(cache))
+        nbytes = _weight_bytes(params) + cache_bytes
+        busy = sum(dt for dt, _, _ in prof)
+        out.update(prof_busy=busy, prof_wall=pst.get("wall_ms"),
+                   prof_idle=1 - busy / pst["wall_ms"] if pst else None,
+                   prof_k7=card_ms(("flash_attention",)),
+                   prof_gemm=card_ms(("gemm", "gemv", "nvjet", "xmma",
+                                      "cutlass", "cublas", "splitk")),
+                   prof_copy=card_ms(("copy",)),
+                   prof_kernels=sum(n for _, n, _ in prof), bytes=nbytes,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        log(f"  {label}: one decode step at B = {B}, pos {pos}: card busy "
+            f"{busy:.4f} ms (idle share "
+            f"{out['prof_idle'] if pst else float('nan'):.3f}) in "
+            f"{out['prof_kernels']} kernels: K7 {out['prof_k7']:.4f} ms, "
+            f"GEMMs {out['prof_gemm']:.4f} ms, copies {out['prof_copy']:.4f} "
+            f"ms; the bytes bound {out['bound_ms']:.4f} ms (every weight "
+            f"but the embedding and the {cache_bytes / 1e9:.2f} GB cache read "
+            f"once: {nbytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} "
+            f"TB/s) {tag}")
+        return params, cache, out
+
+    # (a) serving at full depth
+    model = Model(cfg)
+    params, cache, res["serve"] = serve("3p", model, LLAVA_NEW, calls,
+                                        counts)
+    del cache
+    # the same requests in float32 compute (the same bf16 parameters, K7's
+    # float32 path), held against the float32 forward within GAP_BOUND_F32
+    f32 = Model(cfg.replace(compute_dtype="float32"))
+    k0 = fa.LAUNCHES["flash_attention"]
+    n32 = LLAVA_F32_ROWS
+    toks32, rows32, pre32_ms, step32_ms, cache = llava_generate(
+        f32, params, prompts[:n32], vis[:n32], LLAVA_F32_NEW, dev)
+    del cache
+    gap32, scale32, limited32 = teacher_forced_batch(
+        f32, params, list(prompts[:n32]),
+        {i: list(toks32[i]) for i in range(n32)},
+        {i: list(rows32[i]) for i in range(n32)}, GAP_BOUND_F32, dev,
+        extra={"vision_embeds": vis[:n32]})
+    k32 = fa.LAUNCHES["flash_attention"] - k0
+    if k32 != cfg.n_layers * (LLAVA_F32_NEW + 2):
+        raise AssertionError(f"3p float32: {k32} K7 launches")
+    n_tf = n32 * (LLAVA_F32_NEW + 1)
+    res["f32"] = dict(gap=gap32, scale=scale32, limited=limited32,
+                      checked=n_tf, launches=k32, prefill_ms=pre32_ms,
+                      step_ms=statistics.median(step32_ms))
+    log(f"  3p float32 compute ({n32} requests, {LLAVA_F32_NEW} decode "
+        f"steps: prefill {pre32_ms:.1f} ms, a step "
+        f"{res['f32']['step_ms']:.1f} ms): decode logits within "
+        f"{gap32:.4g} of the float32 forward's (largest logit "
+        f"{scale32:.4g}; bound {GAP_BOUND_F32 * scale32:.4g}); every token "
+        f"the forward's argmax, {limited32}/{n_tf} margin-limited; K7 "
+        f"launches {k32} {tag}")
+
+    # (b) one loss forward at full depth on 2 x (576 + 128) positions
+    data = dict(LLAVA_TRAIN, vocab_size=cfg.vocab_size)
+    pipe = TokenPipeline(DataConfig(**data))
+    nb = data["global_batch"]
+    batch = dict(pipe.global_batch_at(0), vision_embeds=vis[:nb])
+    k0 = fa.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = model.loss(params, batch, device=dev)
+        m = {k: float(v) for k, v in m.items()}
+        loss_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.isfinite(list(m.values()))) or \
+            fa.LAUNCHES["flash_attention"] - k0 != cfg.n_layers:
+        raise AssertionError(f"llava loss forward: {m}, "
+                             f"{fa.LAUNCHES['flash_attention'] - k0} K7 "
+                             f"launches")
+    res.update(loss=m, loss_ms=loss_ms)
+    log(f"  3p loss forward on {nb} x ({n_vis} + {data['seq_len']}) positions "
+        f"(no_grad, host clock {loss_ms:.1f} ms): " + ", ".join(
+            f"{k} {v:.6g}" for k, v in sorted(m.items())) + f" {tag}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["serve_peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+
+    # (c) training at full width, LLAVA_TRAIN_LAYERS layers
+    tcfg = cfg.replace(n_layers=LLAVA_TRAIN_LAYERS)
+    ocfg = OptimConfig(peak_lr=3e-4, warmup_steps=1,
+                       decay_steps=LLAVA_TRAIN_STEPS)
+    built = make_train_step(tcfg, ocfg, TrainConfig(), device=dev)
+    t0 = time.perf_counter()
+    tparams, opt = built["init"](SEED)
+    torch.cuda.synchronize()
+    log(f"  3p training: {tcfg.name} at full width, {tcfg.n_layers} of "
+        f"{cfg.n_layers} layers: {tcfg.param_count():,} {tcfg.param_dtype} "
+        f"parameters with their AdamW state from seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{(torch.cuda.memory_allocated() - held) / 1e9:.2f} GB {tag}")
+    vis_t = _patch_embeds(cfg, nb, SEED + 5, dev)
+    with_vis = types.SimpleNamespace(global_batch_at=lambda s: dict(
+        pipe.global_batch_at(s), vision_embeds=vis_t))
+    losses, step_ms = [], []
+    k0 = fa.LAUNCHES["flash_attention"]
+    tparams, opt = _train_steps(built, tparams, opt, with_vis,
+                                LLAVA_TRAIN_STEPS, 0, fa, tcfg.n_layers,
+                                losses, step_ms)
+    res["train"] = _steps_report(
+        losses, step_ms, fa.LAUNCHES["flash_attention"] - k0, tcfg.n_layers,
+        tcfg.param_count(), nb, n_vis + data["seq_len"], held, tag,
+        steps=LLAVA_TRAIN_STEPS)
+    del tparams, opt, built, vis_t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the optimized profile at full depth
+    over = optimized_overrides(arch)
+    pcalls, pcounts = {}, {}
+    params, cache, res["profile"] = serve(
+        "3p profile", Model(cfg.replace(**over)), LLAVA_PROFILE_NEW, pcalls,
+        pcounts)
+    res["profile"]["overrides"] = over
+    del params, cache, vis
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["launches"] = fa.LAUNCHES["flash_attention"]
+    want = (res["serve"]["launches"] + res["f32"]["launches"] + cfg.n_layers
+            + 2 * LLAVA_TRAIN_LAYERS * LLAVA_TRAIN_STEPS
+            + res["profile"]["launches"])
+    if res["launches"] != want:
+        raise AssertionError(f"3p: {res['launches']} K7 launches, not {want}")
+    res["counts"] = counts
+    res["profile_counts"] = pcounts
+    res["peak_gb"] = max(res["serve_peak_gb"], (
+        torch.cuda.max_memory_allocated() - held) / 1e9)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 3p: {res['phase_s']:.1f} s; K7 launches {res['launches']} "
+        f"(serving {res['serve']['launches']}, float32 "
+        f"{res['f32']['launches']}, the loss forward "
+        f"{cfg.n_layers}, training "
+        f"{2 * LLAVA_TRAIN_LAYERS * LLAVA_TRAIN_STEPS}, the profile "
+        f"{res['profile']['launches']}); peak allocated "
+        f"{res['peak_gb']:.2f} GB besides {held / 1e9:.2f} GB {tag}")
+    k7 = {k: (a, kw) for k, (_, a, kw) in calls.items()}
+    k7.update({f"profile_{k}": (a, kw) for k, (_, a, kw) in pcalls.items()})
+    return res, k7
 
 
 def check_kernel_api(torch, dev, index, q_words, p):
@@ -4249,6 +4665,7 @@ def main() -> int:
     worst = check_flash_cases(fa, torch, dev)
     log(f"  K7 flash_attention, {len(FLASH_CASES)} cases x float32/bf16 "
         f"(MHA, GQA, MQA, G = 3, 5, 7; causal or not; windows 8, 16, 24, 64; "
+        f"llava's 676-position prefill and 708-key decode at G = 7 and 8; "
         f"valid_len 0, 1, 37, 100, 160; Sq, Sk 100, 130, 160; D 16, 20, 32, "
         f"48, 64, 112, 128, 256, 320, 512; G up to 96) against the plain "
         f"version in "
@@ -4286,6 +4703,13 @@ def main() -> int:
         add_counts(total)
         return total
 
+    # 3p first: llava's 68.9 GB of parameters (70.6 GB under its profile)
+    # need a card that holds nothing else, and the operands a to e keep
+    # for phase 4 take ~9.3 GB
+    log(f"phase 3p: llava-next-34b at full width and depth {tag}")
+    llava, k7_llava = llava_path(dev, tag, zero_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
     amih_counts, scan_counts, shard_counts = {}, {}, {}
     shard_rows = []                       # phase 3d (label, ms/query)
     cluster_rows, cluster_counts = [], {}  # phase 3e
@@ -4541,9 +4965,11 @@ def main() -> int:
     mamba_training = mamba_train_path(dev, tag, zero_counts)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 3n: hymba-1.5b at full width and depth, token serving {tag}")
+    log(f"phase 3n: hymba-1.5b at full width, {HYMBA_SERVE_LAYERS} of 32 "
+        f"layers, token serving {tag}")
     hymba_serving, _ = serve_path(dev, tag, zero_counts, arch="hymba_1_5b",
-                                  label="3n", cli=False)
+                                  label="3n", layers=HYMBA_SERVE_LAYERS,
+                                  cli=False)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3n: hymba-1.5b past its window of 2,048: the ring set and "
@@ -4575,7 +5001,8 @@ def main() -> int:
                 + whisper["launches"] + whisper["train_launches"]
                 + hymba_serving["launches"] + hymba["ring_launches"]
                 + hymba["train_launches"]
-                + sum(r["launches"] for r in moe.values())}
+                + sum(r["launches"] for r in moe.values())
+                + llava["launches"]}
     log(f"  kernel launches, AMIH path: {amih_counts}; K2/K3 by wrapper "
         f"and query rows: " + ", ".join(
             f"{name} B={rows}: {n}"
@@ -4733,6 +5160,13 @@ def main() -> int:
             ("3n hymba-1.5b", k7_hymba, "train", hymba["by_kind"]["train"]),
             *((f"3o {arch}", k7_moe[arch], kind, moe[arch]["counts"][kind])
               for arch in ("arctic_480b", "kimi_k2_1t_a32b")
+              for kind in ("prefill", "decode")),
+            # llava's prefill (G = 7 over 676 positions) and decode (708
+            # valid keys), and the profile's (G = 8)
+            *(("3p llava-next-34b", k7_llava, kind, llava["counts"][kind])
+              for kind in ("prefill", "decode")),
+            *(("3p llava-next-34b", k7_llava, f"profile_{kind}",
+               llava["profile_counts"][kind])
               for kind in ("prefill", "decode"))):
         e = k7_path[label, kind] = check_flash_call(fa, *calls_[kind])
         e["launches"] = n
@@ -4925,7 +5359,8 @@ def main() -> int:
         f"{r['peak_gb']:.2f} GB, losses {r['losses'][0]:.4f} -> "
         f"{r['losses'][-1]:.4f}; {r['wall_s']:.1f} s with its checkpoints")
     r = hymba_serving
-    log(f"  token serving (hymba-1.5b, 32 layers, B = 8, max_seq 256): "
+    log(f"  token serving (hymba-1.5b, {HYMBA_SERVE_LAYERS} layers, B = 8, "
+        f"max_seq 256): "
         f"{r['tokens_s']:.1f} tokens/s, decode step {r['step_ms']:.3f} ms "
         f"(median; {r['step_ms_big']:.3f} at {r['group_big']} rows), card "
         f"busy {r['prof_busy']:.4f} ms a profiled step, peak "
@@ -4956,6 +5391,29 @@ def main() -> int:
             f"moe_rz {r['loss']['moe_rz']:.6f}, dropped_fraction "
             f"{r['loss']['dropped_fraction']:.6f}; K7 decode {e['ms']:.6f} "
             f"ms (bound {e['bound_ms']:.6f}, SDPA {e['library_ms']:.6f})")
+    r, pr, t = llava["serve"], llava["profile"], llava["train"]
+    log(f"  llava-next-34b (60 layers, B = {LLAVA_B}, {LLAVA_NEW} steps): "
+        f"prefill {r['prefill_ms']:.1f} ms, decode step {r['step_ms']:.3f} ms "
+        f"({r['tokens_s']:.1f} tokens/s) against {r['prof_busy']:.4f} ms of "
+        f"card time (idle share {r['prof_idle']:.3f}) and a "
+        f"{r['bound_ms']:.4f} ms bytes bound; bf16 gap {r['gap']:.4g} "
+        f"({r['gap'] / r['scale']:.4f} of the largest logit), "
+        f"{r['limited']}/{r['checked']} margin-limited; float32 gap "
+        f"{llava['f32']['gap']:.4g} "
+        f"({llava['f32']['gap'] / llava['f32']['scale']:.2e}), "
+        f"{llava['f32']['limited']}/{llava['f32']['checked']} "
+        f"margin-limited; loss forward ce {llava['loss']['ce']:.4f}; "
+        f"training ({LLAVA_TRAIN_LAYERS} layers) step {t['step_ms']:.3f} ms, "
+        f"{t['tokens_s']:,.0f} tokens/s, mfu {t['mfu']:.4f}, losses "
+        f"{t['losses'][0]:.4f} -> {t['losses'][-1]:.4f}; the profile "
+        f"(G = 8) decode step {pr['step_ms']:.3f} ms against "
+        f"{pr['prof_busy']:.4f} ms of card time; peak {llava['peak_gb']:.2f} "
+        f"GB")
+    for kind in ("prefill", "decode", "profile_prefill", "profile_decode"):
+        e = k7_path["3p llava-next-34b", kind]
+        log(f"  K7 at llava's {kind} operand: {e['ms']:.6f} ms (bound "
+            f"{e['bound_ms']:.6f}, SDPA {e['library_ms']:.6f}), "
+            f"{e['launches']} launches")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,8 +10,8 @@ scoring forward), ``block_decode`` the single-token path against a KV
 cache (linear, or a ring buffer of the sliding window) and an SSM state.
 The enc-dec family's layers run the dense branch here (the reference's
 ``block_forward`` does the same; its decoder with cross-attention lives
-in ``encdec.py``). Caches are NamedTuples laid out as the reference lays
-them. The vlm family is ROADMAP A11 and raises ``NotImplementedError``.
+in ``encdec.py``), and so do the vlm's (its patch embeddings enter in
+``lm.py``). Caches are NamedTuples laid out as the reference lays them.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import torch
 
 from . import moe as moe_lib
 from . import ssm as ssm_lib
-from .common import not_ported
+from .common import check_family
 from .layers import (
     apply_norm,
     apply_rope,
@@ -53,11 +53,6 @@ class AttnCache(NamedTuple):
 class LayerCache(NamedTuple):
     attn: Optional[AttnCache]
     ssm: Optional[ssm_lib.SSMState]
-
-
-def _ported(cfg):
-    if cfg.family not in ("dense", "moe", "encdec", "ssm", "hybrid"):
-        raise not_ported(f"the {cfg.family!r} block")
 
 
 def _attn_proj(x, p):
@@ -159,7 +154,7 @@ def block_forward(cfg, p, x, positions, *, window: int = 0,
                   causal: bool = True):
     """One layer, full sequence. Returns (x, aux, cache or None); ``aux``
     holds the MoE block's terms (empty elsewhere)."""
-    _ported(cfg)
+    check_family(cfg)
     h = apply_norm(x, p["ln1"], cfg.norm)
     if cfg.family == "ssm":
         cache = None
@@ -199,7 +194,7 @@ def block_decode(cfg, p, x, cache: LayerCache, pos: int, *,
                  window: int = 0):
     """One layer, one token. Returns (x, cache): a KV cache is written in
     place; an SSM layer returns its new state (the caller stores it)."""
-    _ported(cfg)
+    check_family(cfg)
     h = apply_norm(x, p["ln1"], cfg.norm)
     if cfg.family == "ssm":
         out, new_ssm = ssm_lib.ssm_decode_step(h, cache.ssm, p["ssm"], cfg)

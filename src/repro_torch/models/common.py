@@ -1,22 +1,28 @@
-"""Architecture config of the port's LM (a copy of the reference's
-``models/common.py`` ``ArchConfig``, with torch dtypes).
+"""Architecture config of the port's LM and the shape registry (copies
+of the reference's ``models/common.py`` ``ArchConfig``, with torch dtypes,
+and ``ShapeConfig``, ``SHAPES``, ``shape_applicable``).
 
 Every parameter shape derives from one frozen ``ArchConfig``. The port
-runs the dense family (the retrieval encoder, serving, training), the
-encoder-decoder (whisper), the SSM (mamba2), the hybrid (hymba) and MoE
-(arctic, kimi-k2); the vlm family's fields are kept so that a reference
-config copies over unchanged, and the code that would read them raises
-``NotImplementedError`` (ROADMAP A11).
+runs every family of the reference: the dense family (the retrieval
+encoder, serving, training), the encoder-decoder (whisper), the SSM
+(mamba2), the hybrid (hymba), MoE (arctic, kimi-k2) and the vlm (llava:
+the dense decoder behind stubbed patch embeddings). ``SHAPES`` names the
+reference's four workload shapes (train 4k, prefill 32k, decode 32k, a
+500k-token decode that only the sub-quadratic families take).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
-__all__ = ["ArchConfig", "not_ported"]
+__all__ = ["ArchConfig", "FAMILIES", "LONG_CONTEXT_FAMILIES", "SHAPES",
+           "ShapeConfig", "check_family", "not_ported", "shape_applicable"]
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 _DTYPES = {
     "float32": torch.float32,
@@ -135,6 +141,42 @@ class ArchConfig:
         from . import lm
 
         return lm.count_params(self, active_only=True)
+
+
+def check_family(cfg: ArchConfig) -> None:
+    """Raise on a family the zoo does not have."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}; known: {FAMILIES}")
+
+
+# ------------------------------------------------------------- the shapes
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# long_500k needs sub-quadratic attention: only SSM/hybrid run it
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(whether ``cfg`` runs ``shape``, the reason where it does not)."""
+    if shape.name == "long_500k" and cfg.family not in LONG_CONTEXT_FAMILIES:
+        return False, (
+            "long_500k requires sub-quadratic attention; "
+            f"{cfg.name} is pure full-attention (skip recorded in DESIGN.md)"
+        )
+    return True, ""
 
 
 def not_ported(what: str) -> NotImplementedError:

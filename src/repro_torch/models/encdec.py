@@ -25,7 +25,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -34,7 +33,7 @@ from ..tree import leaves, tree_map
 from .blocks import AttnCache, attention_decode, attention_full
 from .blocks import cross_attention_decode
 from .layers import apply_norm, blocked_attention, mlp, sinusoidal_positions
-from .lm import _placed, _remat_context, _split_layers
+from .lm import _placed, _placed_input, _remat_context, _split_layers
 
 __all__ = [
     "EncDecCache",
@@ -51,14 +50,6 @@ __all__ = [
 class EncDecCache(NamedTuple):
     self_kv: AttnCache     # (L, B, S_max, Hkv, Dh)
     cross_kv: AttnCache    # (L, B, S_enc, Hkv, Dh)
-
-
-def _frames(batch, dev):
-    """The batch's ``enc_frames`` as a tensor on ``dev``."""
-    x = batch["enc_frames"]
-    if isinstance(x, torch.Tensor):
-        return x.to(dev)
-    return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
 
 
 # ------------------------------------------------------------- encoder
@@ -124,7 +115,7 @@ def _decode_tokens_embed(cfg, params, tokens, pos0: int):
 def forward(cfg, params, batch, *, device=None):
     """Training forward: (decoder logits (B, S, V) float32, aux {})."""
     dev, tokens = _placed(params, batch["tokens"], device)
-    enc_h = encode(cfg, params, _frames(batch, dev))
+    enc_h = encode(cfg, params, _placed_input(batch, "enc_frames", dev))
     h = _decode_tokens_embed(cfg, params, tokens, 0)
     positions = torch.arange(tokens.shape[1], device=dev)
     recorded = torch.is_grad_enabled() and (enc_h.requires_grad or any(
@@ -210,7 +201,7 @@ def prefill(cfg, params, batch, *, device=None) -> Tuple[torch.Tensor,
     halves (self-attention sized to the prompt). Returns (logits at the
     last position (B, V) float32, cache)."""
     dev, tokens = _placed(params, batch["tokens"], device)
-    enc_h = encode(cfg, params, _frames(batch, dev))
+    enc_h = encode(cfg, params, _placed_input(batch, "enc_frames", dev))
     h = _decode_tokens_embed(cfg, params, tokens, 0)
     positions = torch.arange(tokens.shape[1], device=dev)
     caches = []

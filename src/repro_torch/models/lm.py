@@ -1,4 +1,4 @@
-"""The port's decoder LM, the dense, MoE, SSM and hybrid families (the
+"""The port's decoder LM, the dense, MoE, SSM, hybrid and vlm families (the
 reference's ``models/lm.py``): parameter templates (the enc-dec family's
 too, whose forward lives in ``encdec.py``), random init, embedding, the
 layer stack, the LM head, the scoring forward, the loss, the decode
@@ -7,8 +7,8 @@ cache, prefill and the decode step.
 Parameters are a plain dict of tensors with the reference's tree: per
 layer tensors stacked on a leading "layers" axis under ``"layers"`` (and
 a MoE model's ``first_k_dense`` leading dense layers under
-``"front_layers"``), the embedding, the final norm, and ``"unembed"``
-where embeddings are untied.
+``"front_layers"``), the embedding, the final norm, ``"unembed"`` where
+embeddings are untied, and the vlm's (d, d) ``"vision_adapter"``.
 ``init_params`` draws them as the reference does (normal, std 0.02 and
 0.02 / sqrt(2 L) for output projections, norms at 1, biases at 0, the
 SSM's ``A_log``, ``dt_bias`` and ``D_skip`` fixed; ``param_dtype``),
@@ -31,6 +31,15 @@ load-balance loss (x 0.01) and router z-loss (x 1e-3); as in the
 reference, the leading dense layers add no aux terms. The hybrid family's
 attention runs with ``cfg.sliding_window``.
 
+The vlm family is the dense decoder behind stubbed patch embeddings: a
+batch carries ``"vision_embeds"`` (B, vision_tokens, d) beside its
+tokens; ``forward_hidden`` and ``prefill`` cast them to the compute
+dtype, multiply them by ``vision_adapter`` and put them in front of the
+embedded text. ``forward_hidden`` strips those positions after the final
+norm, so the logits and the loss cover text positions only; prefill's
+cache holds vision_tokens + T positions, and decoding goes on at pos =
+vision_tokens + T.
+
 The decode cache is ``{"layers": LayerCache(attn=AttnCache(k, v),
 ssm=None)}`` with k and v laid out (layers, batch, kv_len, kv_heads,
 head_dim) in the compute dtype, as the reference's; the SSM family's is
@@ -44,7 +53,6 @@ state, into that cache in place (the reference's serving engine donates
 it) and returns it. ``prefill``, ``forward``, ``loss_fn``,
 ``init_cache`` and ``decode_step`` run on ``device`` (None: the CUDA
 device; it raises without one) and refuse parameters that lie elsewhere.
-The vlm family is ROADMAP A11 and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ from ..kernels.ops import resolve_device
 from ..tree import leaves_with_path, tree_map, unflatten
 from . import ssm as ssm_lib
 from .blocks import AttnCache, LayerCache, block_decode, block_forward
-from .common import ArchConfig, not_ported
+from .common import ArchConfig, check_family
 from .layers import apply_norm
 
 __all__ = [
@@ -96,8 +104,6 @@ class PSpec(NamedTuple):
     kind: str = "p"        # p = param dtype, f = float32
     init: str = "normal"   # normal | out | zeros | ones | ssm_special
 
-
-_FAMILIES = ("dense", "moe", "encdec", "ssm", "hybrid")
 
 # a leaf stored in another dtype than float32 is drawn in float32 slices
 # of at most this many elements (1 GiB)
@@ -166,8 +172,7 @@ def layer_template(cfg: ArchConfig, moe: bool = True,
     the MoE block where ``moe`` (else the dense MLP); ``cross_attn`` adds
     the decoder's cross-attention (``lnx``, ``xattn``) of the enc-dec
     family."""
-    if cfg.family not in _FAMILIES:
-        raise not_ported(f"the {cfg.family!r} layer")
+    check_family(cfg)
     t: Dict[str, Any] = {"ln1": _norm_t(cfg)}
     if cfg.has_attention:
         t["attn"] = _attn_t(cfg)
@@ -224,6 +229,8 @@ def model_template(cfg: ArchConfig):
                                    cfg.first_k_dense)
     t["layers"] = _stack(layer_template(cfg),
                          cfg.n_layers - cfg.first_k_dense)
+    if cfg.family == "vlm":
+        t["vision_adapter"] = PSpec((d, d), ("embed", None))
     return t
 
 
@@ -423,10 +430,32 @@ def _placed(params, tokens, device):
     return dev, torch.from_numpy(np.asarray(tokens, np.int64)).to(dev)
 
 
-def forward_hidden(cfg: ArchConfig, params, batch, *, device=None):
-    """Forward up to and including the final norm: (h (B, S, d), aux)."""
-    dev, tokens = _placed(params, batch["tokens"], device)
+def _placed_input(batch, name: str, dev):
+    """The batch's float input ``name`` (the vlm's ``vision_embeds``, the
+    enc-dec family's ``enc_frames``) as a tensor on ``dev``."""
+    x = batch[name]
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+
+def _embed_inputs(cfg, params, batch, tokens, dev):
+    """The embedded tokens; for the vlm, behind the patch embeddings
+    through ``vision_adapter`` (a product in the compute dtype). Returns
+    (h (B, S, d), the number of vision positions in front)."""
     h = embed_tokens(cfg, params, tokens)
+    if cfg.family != "vlm":
+        return h, 0
+    vis = _placed_input(batch, "vision_embeds", dev).to(h.dtype) \
+        @ params["vision_adapter"].to(h.dtype)
+    return torch.cat([vis, h], dim=1), vis.shape[1]
+
+
+def forward_hidden(cfg: ArchConfig, params, batch, *, device=None):
+    """Forward up to and including the final norm: (h (B, S, d), aux);
+    the vlm's vision positions are stripped, so S counts text only."""
+    dev, tokens = _placed(params, batch["tokens"], device)
+    h, n_vis = _embed_inputs(cfg, params, batch, tokens, dev)
     positions = torch.arange(h.shape[1], device=dev)
     window = attention_window(cfg)
     if cfg.first_k_dense:
@@ -434,7 +463,8 @@ def forward_hidden(cfg: ArchConfig, params, batch, *, device=None):
         h, _ = _apply_stack(_dense(cfg), params["front_layers"], h,
                             positions, window=window, moe=False)
     h, aux = _apply_stack(cfg, params["layers"], h, positions, window=window)
-    return apply_norm(h, params["final_norm"], cfg.norm), aux
+    h = apply_norm(h, params["final_norm"], cfg.norm)
+    return h[:, n_vis:], aux
 
 
 def forward(cfg: ArchConfig, params, batch, *, device=None):
@@ -500,7 +530,7 @@ def loss_fn(cfg: ArchConfig, params, batch, *, device=None):
         dev, tokens = _placed(params, batch["tokens"], device)
         targets = tokens[:, 1:]
         if cfg.ce_chunk:
-            h, aux = forward_hidden(cfg, params, {"tokens": tokens},
+            h, aux = forward_hidden(cfg, params, dict(batch, tokens=tokens),
                                     device=dev)
             ce_sum, z_sum, cnt = _chunked_ce(cfg, params, h[:, :-1],
                                              targets)
@@ -508,7 +538,7 @@ def loss_fn(cfg: ArchConfig, params, batch, *, device=None):
             ce = ce_sum / denom
             zloss = 1e-4 * z_sum / denom
         else:
-            logits, aux = forward(cfg, params, {"tokens": tokens},
+            logits, aux = forward(cfg, params, dict(batch, tokens=tokens),
                                   device=dev)
             lg = logits[:, :-1]
             logz = torch.logsumexp(lg, dim=-1)
@@ -536,8 +566,7 @@ def cache_template(cfg: ArchConfig, batch: int, max_seq: int):
     the ``meta`` device; the reference returns ShapeDtypeStructs). The
     hybrid's sliding-window attention gets a ring buffer of
     min(max_seq, sliding_window) slots."""
-    if cfg.family not in _FAMILIES:
-        raise not_ported(f"the {cfg.family!r} decode cache")
+    check_family(cfg)
     cdt = cfg.cdtype()
     window = attention_window(cfg)
     kv_len = min(max_seq, window) if window else max_seq
@@ -620,9 +649,10 @@ def prefill(cfg: ArchConfig, params, batch, max_seq: Optional[int] = None,
     """Full-prompt pass that also builds the decode cache. Returns (logits
     at the last position (B, V) float32, cache sized to the prompt; the
     serving engine pads it to its ``max_seq``, and ``max_seq`` here is
-    unused, as in the reference)."""
+    unused, as in the reference). The vlm's cache holds its vision
+    positions in front of the prompt's."""
     dev, tokens = _placed(params, batch["tokens"], device)
-    h = embed_tokens(cfg, params, tokens)
+    h, _ = _embed_inputs(cfg, params, batch, tokens, dev)
     positions = torch.arange(h.shape[1], device=dev)
     window = attention_window(cfg)
     cache = {}

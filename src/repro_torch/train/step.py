@@ -2,8 +2,9 @@
 ``train/step.py`` for one device, ``mesh=None``).
 
 ``make_train_step``: the family's loss (``Model.loss``; a batch carries
-``tokens`` and, for the enc-dec family, ``enc_frames``) -> gradients (``torch.autograd.grad`` over the
-parameter leaves; with ``microbatches > 1`` the microbatch gradients are
+``tokens`` and, for the enc-dec family, ``enc_frames``, for the vlm
+``vision_embeds``, which the loss places on the step's device) ->
+gradients (``torch.autograd.grad`` over the parameter leaves; with ``microbatches > 1`` the microbatch gradients are
 summed in order and scaled by 1/nm, as the reference's ``lax.scan`` does)
 -> AdamW. The step updates the parameters and the optimizer state in
 place (the reference donates both) and returns them with its metrics as

@@ -116,7 +116,8 @@ def test_arch_ids_hold_the_dense_family():
     assert sorted(ARCH_IDS) == sorted(NAMES + ["gemma_2b", "whisper_tiny",
                                                "mamba2_1_3b", "hymba_1_5b",
                                                "arctic_480b",
-                                               "kimi_k2_1t_a32b"])
+                                               "kimi_k2_1t_a32b",
+                                               "llava_next_34b"])
     assert [n for n in ARCH_IDS if get_config(n).family == "dense"] == \
         ["granite_3_8b", "llama3_8b", "granite_34b", "gemma_2b"]
     for name in NAMES:

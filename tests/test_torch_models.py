@@ -227,10 +227,16 @@ def test_norm_rope_and_mlp_match_reference(tiny):
     for act in ("gelu",):              # the ungated MLP (whisper): ported
         _close(t_layers.mlp(torch.from_numpy(x), t_lp["mlp"], act),
                r_layers.mlp(jnp.asarray(x), r_lp["mlp"], act), TOL)
-    # the MoE feed-forward is ported (tests/test_torch_moe.py); the vlm
-    # family's block is still ROADMAP A11
-    with pytest.raises(NotImplementedError, match="A11"):
-        t_blocks.block_forward(t_cfg.replace(family="vlm"), t_lp,
+    # the MoE feed-forward is ported (tests/test_torch_moe.py); the vlm's
+    # block is the dense block, as the reference's
+    t_vlm, _, _ = t_blocks.block_forward(t_cfg.replace(family="vlm"), t_lp,
+                                         torch.from_numpy(x),
+                                         torch.arange(24))
+    r_vlm, _, _ = r_blocks.block_forward(r_cfg.replace(family="vlm"), r_lp,
+                                         jnp.asarray(x), jnp.arange(24))
+    _close(t_vlm, r_vlm, TOL)
+    with pytest.raises(ValueError, match="unknown family"):
+        t_blocks.block_forward(t_cfg.replace(family="vision"), t_lp,
                                torch.from_numpy(x), torch.arange(24))
 
 
@@ -280,12 +286,16 @@ def test_model_init_on_requested_device_and_unported_families_raise(tiny):
                                   device="cpu")
     assert torch.equal(p1["embed"], p2["embed"])
     assert p1["layers"]["attn"]["wq"].shape == (2, 64, 4, 32)
-    # vlm is still ROADMAP A11; the ssm, hybrid and MoE families, the
-    # layernorm and whisper-tiny are ported and match the reference
-    with pytest.raises(NotImplementedError, match="A11"):
-        t_lm.model_template(t_cfg.replace(family="vlm"))
-    with pytest.raises(KeyError, match="A11"):
-        get_config("llava_next_34b")
+    # every family is ported: the vlm's template (its vision_adapter),
+    # llava-next-34b's config, the ssm, hybrid and MoE families, the
+    # layernorm and whisper-tiny match the reference; an unknown name is
+    # refused
+    assert _tree(t_lm.model_template(t_cfg.replace(family="vlm"))) == _tree(
+        r_lm.model_template(r_get_tiny("gemma_2b").replace(family="vlm")))
+    assert get_config("llava_next_34b").__dict__ == r_get_config(
+        "llava_next_34b").__dict__
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("llava_next_35b")
     for kw in (dict(family="hybrid", ssm_state=8, ssm_heads=4,
                     ssm_head_dim=16, sliding_window=16),
                dict(family="moe", n_experts=4, experts_per_token=2)):

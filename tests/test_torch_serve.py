@@ -207,7 +207,7 @@ def test_cache_template_and_init_match_reference(tiny):
     assert Model(bf).cache_template(1, 4)["layers"].attn.k.dtype == \
         torch.bfloat16
     # the hybrid's cache (ported): a ring of min(max_seq, window) slots
-    # beside the SSM state, as the reference's; vlm is still ROADMAP A11
+    # beside the SSM state, as the reference's; the vlm's (ported) too
     hyb = dict(family="hybrid", ssm_state=8, ssm_heads=4, ssm_head_dim=16,
                sliding_window=16)
     assert [tuple(t.shape) for t in jax.tree.leaves(t_lm.cache_template(
@@ -216,11 +216,29 @@ def test_cache_template_and_init_match_reference(tiny):
             r_cfg.replace(**hyb), 1, 20))]
     assert t_lm.cache_template(t_cfg.replace(**hyb), 1, 20)[
         "layers"].attn.k.shape[2] == 16
-    with pytest.raises(NotImplementedError, match="A11"):
-        t_lm.cache_template(t_cfg.replace(family="vlm"), 1, 8)
-    with pytest.raises(NotImplementedError, match="A11"):
-        Model(t_cfg.replace(family="vlm")).prefill(
-            t_params, {"tokens": np.ones((1, 3), np.int32)}, device="cpu")
+    assert [tuple(t.shape) for t in jax.tree.leaves(t_lm.cache_template(
+        t_cfg.replace(family="vlm"), 1, 8), is_leaf=torch.is_tensor)] == [
+        s.shape for s in jax.tree.leaves(r_lm.cache_template(
+            r_cfg.replace(family="vlm"), 1, 8))]
+    # a vlm prefill: the patch embeddings through the adapter in front of
+    # the prompt, in the cache as in the reference's
+    vlm = dict(family="vlm", vision_tokens=4)
+    r_vlm = RModel(r_cfg.replace(**vlm))
+    r_params = r_vlm.init_params(jax.random.key(3))
+    batch = {"tokens": np.ones((1, 3), np.int32),
+             "vision_embeds": np.random.default_rng(3).normal(
+                 size=(1, 4, r_cfg.d_model)).astype(np.float32)}
+    t_logits, t_cache = Model(t_cfg.replace(**vlm)).prefill(
+        params_from_reference(jax.tree.map(np.asarray, r_params),
+                              device="cpu"), batch, device="cpu")
+    r_logits, r_cache = r_vlm.prefill(
+        r_params, {k: jnp.asarray(v) for k, v in batch.items()})
+    _close(t_logits, r_logits)
+    assert t_cache["layers"].attn.k.shape == r_cache["layers"].attn.k.shape \
+        == (2, 1, 7, 1, 32)
+    _close(t_cache["layers"].attn.k, r_cache["layers"].attn.k)
+    with pytest.raises(ValueError, match="unknown family"):
+        t_lm.cache_template(t_cfg.replace(family="vision"), 1, 8)
     # the ssm family's cache (ported) has the reference's leaves
     ssm = get_tiny("mamba2_1_3b").replace(compute_dtype="float32")
     r_ssm_tpl = RModel(r_get_tiny("mamba2_1_3b").replace(
