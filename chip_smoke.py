@@ -169,15 +169,16 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       first, K7 launched exactly 2 x 18 times a step (the forward and
       remat's recompute), the peak allocation under the card's memory; it
       prints the median step ms of steps 2-8, tokens/s, the model flops
-      share (``mfu``: 6 x parameters x tokens over the step at 989
-      TFLOP/s), one profiled step by kernel kind and by range (AdamW, the
-      attention recompute, the loss; Chrome trace in ``chiprun_out/``),
-      and the step with each stacked leaf indexed per layer against split
-      once; (c) at the tiny gemma, the ``Trainer`` on the card (one
-      injected failure recovered from the last checkpoint, giving up after
-      ``max_restarts``, a resume from a checkpoint equal bit for bit to the
-      uninterrupted run) and ``python -m repro_torch.launch.train --arch
-      gemma_2b --tiny --steps 8``, checkpoints under a temporary directory.
+      share (``mfu``: ``model_flops``, 6 x parameters x tokens, over the
+      step at 989 TFLOP/s), one profiled step by kernel kind and by range
+      (AdamW, the attention recompute, the loss; Chrome trace in
+      ``chiprun_out/``), and the step with each stacked leaf indexed per
+      layer against split once; (c) at the tiny gemma, the ``Trainer`` on
+      the card (one injected failure recovered from the last checkpoint,
+      giving up after ``max_restarts``, a resume from a checkpoint equal
+      bit for bit to the uninterrupted run) and ``python -m
+      repro_torch.launch.train --arch gemma_2b --tiny --steps 8``,
+      checkpoints under a temporary directory.
    h. Token serving with llama3-8b at full width, 16 of its 32 layers
       (``LLAMA_SERVE_LAYERS``: the cut keeps the script near 600 s; d_model
       4096, 32 q heads over 8 kv heads of 128, d_ff 14336, SwiGLU, vocab
@@ -285,6 +286,21 @@ each of which fails the run (non-zero exit) on any error or mismatch:
       heads, G = 8) at full depth, one prefill and 8 decode steps held as
       before. The vlm has no serving-engine path: the reference's engine
       prefills tokens only.
+   The roofline on one card (``repro_torch.roofline``): after the
+   profiled step of g (b) (a train step), of f, h, m and n (a) (an engine
+   decode step of 8 rows), of each model of o and of p (a) and (d) (a
+   decode step), the same step is counted on ``meta`` tensors
+   (``roofline.counter.count_step``: matmul FLOPs, the eager bytes model
+   by scope, bytes per device) and ``analyze``d at the H100's data-sheet
+   rates (989 TFLOP/s bf16, 3.35 TB/s): ``compute_s``, ``memory_s``,
+   ``step_s``, ``useful_ratio`` and the bytes per device are printed
+   beside the step's card busy time and ``max_memory_allocated`` over
+   it, with the host time of the step's ``record_function`` ranges (their
+   count times one pair's timed cost, ``range_pair_us``), and the run
+   fails if ``compute_s`` exceeds 1.05 x the busy time
+   (``roofline_check``); the summary repeats them and
+   ``chiprun_out/roofline.json`` keeps them. ``mfu`` is the roofline's
+   ``model_flops`` of the train step over its time at 989 TFLOP/s.
    Every kernel launch counter is set to 0 just before each path (a, d,
    b) at each p, and before c, f, g's 8 steps, h, i's steps, each model
    of j, each example of k, l's generation and its 8 steps, m's serving
@@ -1906,9 +1922,20 @@ def flash_bound_ms(q, k, kw):
     ``valid_len``, only the valid key slots) and the output written once at
     the memory rate, or the QK^T and PV multiply-adds of the (query, key)
     pairs the masks keep at the dense rate of the input type, whichever
-    takes longest."""
-    import numpy as np
+    takes longest (``flash_count``'s work)."""
     import torch
+
+    flops, nbytes = flash_count(q, k, kw)
+    rate = BF16_TENSOR_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def flash_count(q, k, kw):
+    """(FLOPs, bytes) of one K7 call: 4 D FLOPs a (batch, query head) over
+    the (query, key) pairs the masks keep, and q, k, v (with
+    ``valid_len``, their valid key slots) and the output moved once."""
+    import numpy as np
 
     B, Sq, Hq, D = q.shape
     Sk = k.shape[1]
@@ -1917,6 +1944,8 @@ def flash_bound_ms(q, k, kw):
     ok = np.ones((Sq, Sk), bool)
     if kw.get("valid_len") is not None:
         ok &= kp < kw["valid_len"]
+        if kw.get("window", 0) > 0:
+            ok &= kp >= kw["valid_len"] - kw["window"]
     if kw.get("causal"):
         ok &= qp >= kp
     if kw.get("window", 0) > 0 and kw.get("valid_len") is None:
@@ -1925,10 +1954,7 @@ def flash_bound_ms(q, k, kw):
     keys = k.numel()
     if kw.get("valid_len") is not None:
         keys = keys // Sk * min(Sk, kw["valid_len"])
-    nbytes = (2 * q.numel() + 2 * keys) * q.element_size()
-    rate = BF16_TENSOR_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    return flops, (2 * q.numel() + 2 * keys) * q.element_size()
 
 
 def check_flash_call(fa, a, kw, reps=20):
@@ -2291,6 +2317,7 @@ def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f",
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.models import Model
     from repro_torch.models import layers as layers_mod
+    from repro_torch.models.common import ShapeConfig
     from repro_torch.serve import ServeConfig, ServeEngine
 
     t_phase = time.perf_counter()
@@ -2505,10 +2532,10 @@ def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f",
     every = np.ones(B, bool)
     pos = SERVE_CFG["max_seq"] // 2
     with torch.no_grad():
-        prof = profile_batch(
+        prof, peak, before = step_peak(lambda: profile_batch(
             lambda: eng._decode(toks, pos, every).float().cpu(),
             f"decode_{arch}_B8", ROOT / "chiprun_out",
-            expect=("flash_attention",) if k7_layers else ())
+            expect=("flash_attention",) if k7_layers else ()))
         head = params["embed" if cfg.tie_embeddings else "unembed"]
         head_cast = cuda_ms(lambda: head.to(torch.bfloat16), 5)
     fa.LAUNCHES.update(saved)                 # measurements do not count
@@ -2532,6 +2559,10 @@ def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f",
         f"{n_w * 2 / 1e9:.2f} GB of casts: {n_w * 8 / HBM_BYTES_PER_S * 1e3:.2f}"
         f" ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s ({n_w * 2 / HBM_BYTES_PER_S * 1e3:.2f}"
         f" ms for resident bf16 weights) {tag}")
+    res["roofline"] = roofline_check(
+        f"{label} {cfg.name} decode step", cfg,
+        ShapeConfig(label, SERVE_CFG["max_seq"], B, "decode"),
+        res["prof_busy"], peak, held, tag, pos=pos)
 
     # the tiny CLI on the card, in a process of its own
     t0 = time.perf_counter()
@@ -2549,12 +2580,108 @@ def serve_path(dev, tag, zero_counts, arch="gemma_2b", label="3f",
             f"({time.perf_counter() - t0:.1f} s with the interpreter's "
             f"start)")
     del eng, params, head
-    res["peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+    res["peak_gb"] = (max(before, torch.cuda.max_memory_allocated())
+                      - held) / 1e9
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase {label}: {res['phase_s']:.1f} s; peak allocated "
         f"{res['peak_gb']:.2f} GB besides the {held / 1e9:.2f} GB that "
         f"earlier phases hold {tag}")
     return res, {k: (a, kw) for k, (_, a, kw) in calls.items()}
+
+
+# ------------------------------------------------------------ the roofline
+ROOFLINE_SLACK = 1.05           # compute_s may exceed card busy by 5%
+RANGE_PAIRS = 20_000            # record_function pairs a round, timed
+
+
+def step_peak(fn):
+    """``fn()``'s result and ``torch.cuda.max_memory_allocated`` over it,
+    with the peak before it: the caller keeps the larger of the two for
+    its own peak."""
+    import torch
+
+    before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    return out, torch.cuda.max_memory_allocated(), before
+
+
+@functools.lru_cache(maxsize=None)
+def range_pair_us() -> float:
+    """Host µs of one ``record_function`` enter/exit pair with no profiler
+    on, the median of 5 rounds of ``RANGE_PAIRS``: what each scope range
+    of the port (``mlp``, ``decode_attn``, ...) adds to a step's host
+    time."""
+    import torch
+
+    rounds = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(RANGE_PAIRS):
+            with torch.profiler.record_function("mlp"):
+                pass
+        rounds.append((time.perf_counter() - t0) / RANGE_PAIRS * 1e6)
+    return statistics.median(rounds)
+
+
+def roofline_check(label, cfg, shape, busy_ms, peak, held, tag, **kw):
+    """The one-card roofline of a step that a phase has just profiled: the
+    same step counted on ``meta`` tensors (``roofline.counter.count_step``,
+    ``kw`` its ``ocfg`` or ``pos``) and ``analyze``d at the H100's
+    data-sheet rates, logged beside the step's card busy time and
+    ``max_memory_allocated`` over it (``peak``, of which ``held`` is held
+    by earlier phases), and the host time of the step's
+    ``record_function`` ranges at ``range_pair_us``. Fails if
+    ``compute_s`` exceeds ``ROOFLINE_SLACK`` x the busy time; a
+    ``memory_s`` above it is reported as what the eager bytes model
+    over-counts."""
+    from repro_torch.roofline import analyze
+    from repro_torch.roofline.counter import count_step
+
+    t0 = time.perf_counter()
+    counted = count_step(cfg, shape, **kw)
+    rep = analyze(cfg, shape, "1 card", 1, "", counted.bytes_per_device,
+                  costs=counted.costs)
+    host_s = time.perf_counter() - t0
+    pair_us = range_pair_us()
+    res = dict(compute_ms=rep.compute_s * 1e3, memory_ms=rep.memory_s * 1e3,
+               step_ms=rep.step_s * 1e3, dominant=rep.dominant,
+               fused_ms=rep.memory_s_fused_attn * 1e3,
+               useful_ratio=rep.useful_ratio, flops=counted.costs.flops,
+               model_flops=rep.model_flops,
+               hbm_gb=counted.costs.hbm_bytes / 1e9,
+               bytes_gb=counted.bytes_per_device / 1e9,
+               peak_gb=(peak - held) / 1e9, held_gb=held / 1e9,
+               busy_ms=busy_ms, kernels=counted.kernels, host_s=host_s,
+               ranges=counted.ranges, range_pair_us=pair_us,
+               ranges_host_ms=counted.ranges * pair_us / 1e3,
+               scopes={k: v / 1e9 for k, v in sorted(
+                   counted.costs.hbm_bytes_by_scope.items())})
+    over = rep.memory_s * 1e3 / busy_ms
+    log(f"  {label} roofline, one card ({shape.kind}, B = "
+        f"{shape.global_batch}, {shape.seq_len} positions; counted on meta "
+        f"in {host_s:.2f} s): compute_s {res['compute_ms']:.4f} ms "
+        f"({res['flops']:.4g} FLOPs at 989 TFLOP/s), memory_s "
+        f"{res['memory_ms']:.4f} ms ({res['hbm_gb']:.2f} GB at 3.35 TB/s; "
+        f"with K7's fused traffic {res['fused_ms']:.4f} ms), step_s "
+        f"{res['step_ms']:.4f} ms ({rep.dominant}), useful_ratio "
+        f"{res['useful_ratio']:.4f} (model flops {res['model_flops']:.4g}); "
+        f"against the card busy {busy_ms:.4f} ms: compute "
+        f"{res['compute_ms'] / busy_ms:.4f}, memory {over:.4f} of it"
+        + (" (the eager bytes model over-counts the card's traffic)"
+           if over > 1 else "")
+        + f"; {counted.kernels} counted kernel ops, {counted.ranges} "
+        f"record_function ranges ({res['ranges_host_ms']:.4f} ms of host "
+        f"time at {pair_us:.3f} us a pair); bytes per device "
+        f"{res['bytes_gb']:.2f} GB against max_memory_allocated over the "
+        f"step {res['peak_gb']:.2f} GB beside {res['held_gb']:.2f} GB of "
+        f"earlier phases; HBM GB by scope " + ", ".join(
+            f"{k} {v:.3f}" for k, v in res["scopes"].items()) + f" {tag}")
+    if rep.compute_s * 1e3 > ROOFLINE_SLACK * busy_ms:
+        raise AssertionError(f"{label}: compute_s {rep.compute_s * 1e3} ms "
+                             f"exceeds {ROOFLINE_SLACK} x the card busy "
+                             f"{busy_ms} ms")
+    return res
 
 
 # ---------------------------------------------------------------- training
@@ -2587,14 +2714,19 @@ def _train_steps(built, params, opt, pipe, steps, first, fa, n_layers,
     return params, opt
 
 
-def _steps_report(losses, step_ms, launches, n_layers, n_params, B, S,
+def _steps_report(losses, step_ms, launches, n_layers, cfg, B, S,
                   held, tag, steps=TRAIN_STEPS):
     """The gates on ``steps`` train steps (every loss finite, the mean of
     the last 3 below the first, K7 launched 2 x layers a step, the peak
     under the card's memory) and their metrics, logged: the median step of
-    steps 2 on, tokens/s, ``mfu``, the peak beyond ``held``."""
+    steps 2 on, tokens/s, ``mfu`` (the roofline's ``model_flops`` of a
+    train step of B x S over the step at 989 TFLOP/s), the peak beyond
+    ``held``."""
     import numpy as np
     import torch
+
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.roofline import model_flops
 
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
@@ -2608,9 +2740,10 @@ def _steps_report(losses, step_ms, launches, n_layers, n_params, B, S,
         raise AssertionError(f"peak {peak} bytes of {total}")
     tokens = B * S
     med = statistics.median(step_ms[1:])
+    mf = model_flops(cfg, ShapeConfig("train", S, B, "train"))
     res = dict(launches=launches, losses=losses, step_ms=med,
                first_ms=step_ms[0], tokens_s=tokens / (med / 1e3),
-               mfu=6.0 * n_params * tokens / (med / 1e3 * BF16_TENSOR_FLOPS),
+               mfu=mf / (med / 1e3 * BF16_TENSOR_FLOPS),
                peak_gb=(peak - held) / 1e9, total_gb=total / 1e9)
     log(f"  {steps} steps, B = {B} x {S} tokens: losses "
         + ", ".join(f"{x:.4f}" for x in losses)
@@ -2618,7 +2751,8 @@ def _steps_report(losses, step_ms, launches, n_layers, n_params, B, S,
     log(f"  train step (host clock to the loss on the host): median of steps "
         f"2-{steps} {med:.3f} ms (first {step_ms[0]:.1f} ms), "
         f"{res['tokens_s']:,.0f} tokens/s, model flops share (mfu) "
-        f"{res['mfu']:.4f} = 6 x {n_params:.4g} x {tokens} / ({med:.3f} ms x "
+        f"{res['mfu']:.4f} = model_flops {mf:.4g} (6 x "
+        f"{cfg.param_count():.4g} x {tokens}) / ({med:.3f} ms x "
         f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s); peak allocated by the "
         f"steps {res['peak_gb']:.2f} GB ({peak / 1e9:.2f} GB with earlier "
         f"phases' of {res['total_gb']:.2f} GB) {tag}")
@@ -2724,6 +2858,7 @@ def train_path(dev, tag, zero_counts):
     from repro_torch.data import DataConfig, TokenPipeline
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.models import layers as layers_mod
+    from repro_torch.models.common import ShapeConfig
     from repro_torch.models import lm as lm_mod
     from repro_torch.optim import OptimConfig
     from repro_torch.train import TrainConfig, make_train_step
@@ -2806,7 +2941,7 @@ def train_path(dev, tag, zero_counts):
     params, opt = _train_steps(built, params, opt, pipe, TRAIN_STEPS, 0, fa,
                                cfg.n_layers, losses, step_ms)
     res.update(_steps_report(losses, step_ms, fa.LAUNCHES["flash_attention"],
-                             cfg.n_layers, n_params, B, S, held, tag))
+                             cfg.n_layers, cfg, B, S, held, tag))
     med = res["step_ms"]
 
     # one profiled step, by kernel kind and by range
@@ -2821,8 +2956,9 @@ def train_path(dev, tag, zero_counts):
         nxt[0] += 1
         return m["loss"].item()
 
-    prof = profile_batch(one_step, "train_gemma2b_B8", ROOT / "chiprun_out",
-                         expect=("flash_attention",), ranges=ranges)
+    prof, peak, _ = step_peak(lambda: profile_batch(
+        one_step, "train_gemma2b_B8", ROOT / "chiprun_out",
+        expect=("flash_attention",), ranges=ranges))
 
     def card_ms(words):
         return sum(dt for dt, _, key in prof
@@ -2852,6 +2988,9 @@ def train_path(dev, tag, zero_counts):
         f" of the unprofiled median step); kernels by range: {rng_txt}; "
         f"every weight cast to bf16 once {cast_ms:.4f} ms (CUDA events) "
         f"{tag}")
+    res["roofline"] = roofline_check(
+        "3g gemma-2b train step", cfg, ShapeConfig("3g", S, B, "train"),
+        res["prof_busy"], peak, held, tag, ocfg=ocfg)
 
     # the same steps with each stacked leaf indexed per layer (a select a
     # layer, each with a full-size zero gradient of its stacked leaf)
@@ -2956,7 +3095,7 @@ def dense_train_path(dev, tag, zero_counts):
     finally:
         layers_mod.flash_attention = fa.flash_attention
     res = _steps_report(losses, step_ms, fa.LAUNCHES["flash_attention"],
-                        cfg.n_layers, n_params, B, S, held, tag)
+                        cfg.n_layers, cfg, B, S, held, tag)
     del params, opt, built
     gc.collect()
     torch.cuda.empty_cache()
@@ -3441,6 +3580,8 @@ def mamba_train_path(dev, tag, zero_counts):
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.configs import get_config
     from repro_torch.launch import train as train_cli
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.roofline import model_flops
     from repro_torch.train import Trainer
 
     cfg = get_config("mamba2_1_3b")
@@ -3492,7 +3633,7 @@ def mamba_train_path(dev, tag, zero_counts):
     peak = (torch.cuda.max_memory_allocated() - held) / 1e9
     res = dict(losses=losses, step_ms=med, first_ms=step_ms[0],
                tokens_s=tokens / (med / 1e3), peak_gb=peak, wall_s=wall,
-               mfu=6.0 * cfg.param_count() * tokens
+               mfu=model_flops(cfg, ShapeConfig("train", 128, 8, "train"))
                / (med / 1e3 * BF16_TENSOR_FLOPS), checkpoints=saved,
                saves=len(payload))
     log(f"  python -m repro_torch.launch.train --arch mamba2_1_3b --steps "
@@ -3765,7 +3906,7 @@ def hymba_path(dev, tag, zero_counts):
                                0, fa, cfg.n_layers, losses, step_ms)
     res.update(train=_steps_report(
         losses, step_ms, fa.LAUNCHES["flash_attention"], cfg.n_layers,
-        cfg.param_count(), data["global_batch"], data["seq_len"], held, tag))
+        cfg, data["global_batch"], data["seq_len"], held, tag))
     long_losses, long_ms, long_calls, long_counts = [], [], {}, {}
     layers_mod.flash_attention = _k7_capture(fa, long_calls, {"train"},
                                              counts=long_counts)
@@ -3927,6 +4068,7 @@ def moe_one(arch, dev, tag, zero_counts):
     from repro_torch.models import Model
     from repro_torch.models import layers as layers_mod
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import ShapeConfig
     from repro_torch.serve import ServeConfig, ServeEngine
 
     t_phase = time.perf_counter()
@@ -4063,12 +4205,12 @@ def moe_one(arch, dev, tag, zero_counts):
     toks = np.array([[served[i][-1]] for i in range(B)], np.int32)
     every = np.ones(B, bool)
     saved = dict(fa.LAUNCHES)
+    pos = MOE_SERVE["max_seq"] - 8
     with torch.no_grad():
-        prof = profile_batch(
-            lambda: eng._decode(toks, MOE_SERVE["max_seq"] - 8,
-                                every).float().cpu(),
+        prof, peak, before = step_peak(lambda: profile_batch(
+            lambda: eng._decode(toks, pos, every).float().cpu(),
             f"decode_{arch}_{MOE_LAYERS}L_B8", ROOT / "chiprun_out",
-            expect=("flash_attention",))
+            expect=("flash_attention",)))
     fa.LAUNCHES.update(saved)
     busy = sum(dt for dt, _, _ in prof)
     gemm = sum(dt for dt, _, key in prof if any(
@@ -4081,10 +4223,15 @@ def moe_one(arch, dev, tag, zero_counts):
         f"weight but the embedding read once, {nbytes / 1e9:.2f} GB at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: C = T = {B}, so each expert's "
         f"GEMMs run) {tag}")
+    res["roofline"] = roofline_check(
+        f"3o {cfg.name} decode step", cfg,
+        ShapeConfig("3o", MOE_SERVE["max_seq"], B, "decode"), busy, peak,
+        held, tag, pos=pos)
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
-    res["peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+    res["peak_gb"] = (max(before, torch.cuda.max_memory_allocated())
+                      - held) / 1e9
     res["counts"] = counts
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 3o {cfg.name}: {res['phase_s']:.1f} s; peak allocated "
@@ -4203,6 +4350,7 @@ def llava_path(dev, tag, zero_counts):
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.models import Model
     from repro_torch.models import layers as layers_mod
+    from repro_torch.models.common import ShapeConfig
     from repro_torch.optim import OptimConfig
     from repro_torch.train import TrainConfig, make_train_step
 
@@ -4309,12 +4457,12 @@ def llava_path(dev, tag, zero_counts):
         saved = dict(fa.LAUNCHES)
         pst = {}
         with torch.no_grad():
-            prof = profile_batch(
+            prof, peak, before = step_peak(lambda: profile_batch(
                 lambda: model.decode_step(params, cache, last, pos,
                                           device=dev)[0].float().cpu(),
                 f"decode_{arch}_{label.replace(' ', '_')}_B{B}",
                 ROOT / "chiprun_out",
-                expect=("flash_attention",), stats=pst)
+                expect=("flash_attention",), stats=pst))
         fa.LAUNCHES.update(saved)
 
         def card_ms(words):
@@ -4342,6 +4490,12 @@ def llava_path(dev, tag, zero_counts):
             f"but the embedding and the {cache_bytes / 1e9:.2f} GB cache read "
             f"once: {nbytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} "
             f"TB/s) {tag}")
+        slots = leaves(cache)[0].shape[2]
+        out["roofline"] = roofline_check(
+            f"{label} {c.name} decode step", c,
+            ShapeConfig(label, slots, B, "decode"), busy, peak, held, tag,
+            pos=pos)
+        out["peak_before"] = before
         return params, cache, out
 
     # (a) serving at full depth
@@ -4401,7 +4555,9 @@ def llava_path(dev, tag, zero_counts):
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    res["serve_peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+    res["serve_peak_gb"] = (max(res["serve"]["peak_before"],
+                                torch.cuda.max_memory_allocated())
+                            - held) / 1e9
     torch.cuda.reset_peak_memory_stats()
 
     # (c) training at full width, LLAVA_TRAIN_LAYERS layers
@@ -4427,7 +4583,7 @@ def llava_path(dev, tag, zero_counts):
                                 losses, step_ms)
     res["train"] = _steps_report(
         losses, step_ms, fa.LAUNCHES["flash_attention"] - k0, tcfg.n_layers,
-        tcfg.param_count(), nb, n_vis + data["seq_len"], held, tag,
+        tcfg, nb, n_vis + data["seq_len"], held, tag,
         steps=LLAVA_TRAIN_STEPS)
     del tparams, opt, built, vis_t
     gc.collect()
@@ -4451,8 +4607,9 @@ def llava_path(dev, tag, zero_counts):
         raise AssertionError(f"3p: {res['launches']} K7 launches, not {want}")
     res["counts"] = counts
     res["profile_counts"] = pcounts
-    res["peak_gb"] = max(res["serve_peak_gb"], (
-        torch.cuda.max_memory_allocated() - held) / 1e9)
+    res["peak_gb"] = max(res["serve_peak_gb"], (max(
+        res["profile"]["peak_before"], torch.cuda.max_memory_allocated())
+        - held) / 1e9)
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 3p: {res['phase_s']:.1f} s; K7 launches {res['launches']} "
         f"(serving {res['serve']['launches']}, float32 "
@@ -5414,6 +5571,28 @@ def main() -> int:
         log(f"  K7 at llava's {kind} operand: {e['ms']:.6f} ms (bound "
             f"{e['bound_ms']:.6f}, SDPA {e['library_ms']:.6f}), "
             f"{e['launches']} launches")
+    steps = [("3g gemma-2b train", training),
+             ("3f gemma-2b decode", serving),
+             ("3h llama3-8b decode", llama_serving),
+             ("3m mamba2-1.3b decode", mamba_serving),
+             ("3n hymba-1.5b decode", hymba_serving)] + [
+        (f"3o {a} decode", r) for a, r in moe.items()] + [
+        ("3p llava-next-34b decode", llava["serve"]),
+        ("3p profile decode", llava["profile"])]
+    roof = {}
+    for name, r in steps:
+        x = roof[name] = r["roofline"]
+        log(f"  roofline, one card, {name}: compute_s {x['compute_ms']:.4f} "
+            f"ms, memory_s {x['memory_ms']:.4f} ms, step_s "
+            f"{x['step_ms']:.4f} ms, useful_ratio {x['useful_ratio']:.4f}; "
+            f"card busy {x['busy_ms']:.4f} ms; bytes per device "
+            f"{x['bytes_gb']:.2f} GB against {x['peak_gb']:.2f} GB "
+            f"allocated over the step; {x['ranges']} ranges, "
+            f"{x['ranges_host_ms']:.4f} ms of host time")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "roofline.json").write_text(json.dumps(
+        {"card": card, "steps": roof}, indent=1))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

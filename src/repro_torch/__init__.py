@@ -10,9 +10,11 @@ observability; retrieval serving, token serving and training on the
 dense LMs (gemma-2b, llama3-8b, granite-3-8b, granite-34b: ``serve``,
 ``models``, ``configs``, ``optim``, ``checkpoint``, ``train``,
 ``launch.serve``, ``launch.train``); the reference's four examples
-(``examples``). Its seven hand-written CUDA
-kernel libraries live in ``kernels/csrc``. Entry points run on the CUDA
-device unless the caller passes ``device="cpu"``.
+(``examples``); the roofline of one card (``roofline``: a step's FLOPs
+and bytes counted on ``meta`` tensors, the reference's analysis). Its
+seven hand-written CUDA kernel libraries live in ``kernels/csrc``.
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
 """
 
 from .core import (

@@ -26,12 +26,13 @@ from __future__ import annotations
 
 import heapq
 import threading
+import warnings
 from collections import OrderedDict
 from fractions import Fraction
 from typing import Iterator, List, Optional, Tuple
 
 from ..obs.metrics import REGISTRY as _REG
-from .tuples import is_valid_tuple, rhat, sim_squared_fraction
+from .tuples import is_valid_tuple, rhat, sim_squared_fraction, sim_value
 
 __all__ = [
     "probing_sequence",
@@ -40,6 +41,9 @@ __all__ = [
     "second_anchor",
     "probing_prefix",
     "shared_probing_iter",
+    "probing_cache_clear",
+    "probing_cache_info",
+    "probing_cache_stats",
 ]
 
 
@@ -109,6 +113,13 @@ def closed_form_prefix(p: int, z: int):
     return out
 
 
+def probing_sequence_with_sims(p: int, z: int, limit: Optional[int] = None):
+    """Convenience for tests/benchmarks: [(tuple, sim_float), ...]."""
+    return [
+        (t, sim_value(p, z, *t)) for t in probing_sequence(p, z, limit=limit)
+    ]
+
+
 # --------------------------------------------------------------- shared cache
 # The sequence depends only on (p, z) — not on the query, the index, or the
 # shard — so materialized prefixes are cached at MODULE level and shared by
@@ -143,7 +154,7 @@ class _SeqEntry:
 _SEQ_CACHE: "OrderedDict[Tuple[int, int], _SeqEntry]" = OrderedDict()
 _SEQ_CACHE_MAX = 64
 _SEQ_LOCK = threading.RLock()
-# process-lifetime hit/miss counters (see _cache_stats): a miss is
+# process-lifetime hit/miss counters (see probing_cache_stats): a miss is
 # one (p, z) enumeration from scratch, so hits/(hits+misses) is the share
 # of probing-sequence work the cache absorbed
 _SEQ_HITS = 0
@@ -198,6 +209,21 @@ def shared_probing_iter(p: int, z: int) -> Iterator[Tuple[int, int]]:
         i += 1
 
 
+def probing_cache_clear() -> None:
+    """Drop every cached sequence (benchmark seed loops; tests)."""
+    with _SEQ_LOCK:
+        _SEQ_CACHE.clear()
+
+
+def probing_cache_info() -> Tuple[int, int]:
+    """(entries, total materialized tuples) of the shared cache."""
+    with _SEQ_LOCK:
+        return (
+            len(_SEQ_CACHE),
+            sum(len(e.prefix) for e in _SEQ_CACHE.values()),
+        )
+
+
 def _cache_stats() -> dict:
     """Occupancy plus process-lifetime hit/miss counters of the shared
     (p, z) sequence cache — surfaced through ``EngineStats.cache_info``
@@ -213,3 +239,15 @@ def _cache_stats() -> dict:
             "probing_hits": _SEQ_HITS,
             "probing_misses": _SEQ_MISSES,
         }
+
+
+def probing_cache_stats() -> dict:
+    """Deprecated alias of the internal cache-stat snapshot: new code
+    reads the ``cache.probing.*`` counters off the metrics registry (or
+    ``EngineStats.cache_info``, which engines still populate)."""
+    warnings.warn(
+        "probing_cache_stats() is deprecated; read the cache.probing.* "
+        "counters from repro_torch.obs.metrics.REGISTRY instead",
+        DeprecationWarning, stacklevel=2,
+    )
+    return _cache_stats()

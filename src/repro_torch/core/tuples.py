@@ -28,6 +28,7 @@ __all__ = [
     "is_valid_tuple",
     "rhat",
     "tuple_count",
+    "all_valid_tuples",
 ]
 
 
@@ -101,3 +102,8 @@ def rhat(z: int) -> int:
     if z <= 0:
         return 0
     return (math.isqrt(4 * z + 1) - 1) // 2
+
+
+def all_valid_tuples(p: int, z: int):
+    """All valid tuples for (p, z) — O((z+1)(p-z+1)) of them."""
+    return [(r1, r2) for r1 in range(z + 1) for r2 in range(p - z + 1)]

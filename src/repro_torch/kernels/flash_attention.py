@@ -15,20 +15,28 @@ on a CPU tensor it runs
 ``flash_attention_plain``, the same online softmax over kv tiles written
 out in torch ops. The two sum in different orders, so they agree to
 float32 rounding, not bit for bit (bf16: P enters PV as two bf16 terms,
-about 16 significant bits).
+about 16 significant bits). On a ``meta`` tensor (the roofline's step
+counter, ``roofline/counter.py``) it runs neither: it hands the call to
+each callable in ``META_SINKS``, which charges ``flash_work``'s FLOPs
+and bytes, and returns an empty output.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "MAX_HEAD_DIM", "NEG_INF", "SUPPORTED_HEAD_DIMS",
-           "flash_attention", "flash_attention_plain"]
+__all__ = ["LAUNCHES", "MAX_HEAD_DIM", "META_SINKS", "NEG_INF",
+           "SUPPORTED_HEAD_DIMS", "flash_attention", "flash_attention_plain",
+           "flash_work"]
 
 # kernel launches so far (bumped where the kernel is launched, nowhere else)
 LAUNCHES = {"flash_attention": 0}
+# callables (q, k, causal, window, valid_len) told of every call on the
+# meta device, where no kernel runs (the roofline counter adds its own)
+META_SINKS = []
 
 NEG_INF = -1e30
 # the reference kernel's kv tile (``DEFAULT_KV_BLK``): the plain version
@@ -42,18 +50,27 @@ MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _key_range(q_pos, Sk: int, causal: bool, window: int, valid_len):
+    """(lo, hi): the keys lo <= k < hi that each query keeps, the one
+    definition of K7's masks (``q_pos`` holds query positions, a numpy
+    array or a tensor, and the bounds are of its kind and shape)."""
+    lo = q_pos * 0
+    hi = lo + Sk
+    if valid_len is not None:
+        hi = hi.clip(max=valid_len)
+        if window > 0:
+            lo = lo.clip(min=valid_len - window)
+    if causal:
+        hi = hi.clip(max=q_pos + 1)
+    if window > 0 and valid_len is None:
+        lo = lo.clip(min=q_pos - window + 1)
+    return lo, hi
+
+
 def _keep(q_pos, k_pos, Sk: int, causal: bool, window: int, valid_len):
     """(Sq, nk) bool: which keys each query keeps (the reference's ``ok``)."""
-    ok = k_pos < Sk
-    if valid_len is not None:
-        ok = ok & (k_pos < valid_len)
-        if window > 0:
-            ok = ok & (k_pos >= valid_len - window)
-    if causal:
-        ok = ok & (q_pos >= k_pos)
-    if window > 0 and valid_len is None:
-        ok = ok & (q_pos - k_pos < window)
-    return ok
+    lo, hi = _key_range(q_pos, Sk, causal, window, valid_len)
+    return (k_pos >= lo) & (k_pos < hi)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -93,6 +110,24 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def flash_work(q, k, *, causal: bool = True, window: int = 0,
+               valid_len=None):
+    """(FLOPs, bytes) of one K7 call: the QK^T and PV multiply-adds, 4 D
+    FLOPs for each (batch, query head) over the (query, key) pairs that the
+    masks keep (``_key_range``, on numpy positions: no torch op runs), and
+    q and the output moved once, k and v over their valid key slots (with
+    ``valid_len``, the first min(Sk, valid_len) slots), in q's element
+    size. Only shapes are read."""
+    B, Sq, Hq, D = q.shape
+    Sk = k.shape[1]
+    vl = None if valid_len is None else int(valid_len)
+    lo, hi = _key_range(np.arange(Sq), Sk, causal, window, vl)
+    pairs = int((hi - lo).clip(min=0).sum())
+    keys = k.numel() if vl is None else k.numel() // Sk * min(Sk, vl)
+    return (4.0 * D * B * Hq * pairs,
+            float((2 * q.numel() + 2 * keys) * q.element_size()))
 
 
 def _check(q, k, v):
@@ -170,6 +205,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      valid_len=valid_len)
+    if q.device.type == "meta":
+        for sink in META_SINKS:
+            sink(q, k, causal, window, valid_len)
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     out = torch.empty_like(q)

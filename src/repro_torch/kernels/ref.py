@@ -18,6 +18,7 @@ import torch
 __all__ = [
     "popcount32",
     "scores_from_tuples",
+    "scan_scores_ref",
     "scores_ref",
     "tuples_ref",
     "verify_tuples_grouped_ref",
@@ -96,6 +97,10 @@ def scores_ref(q_words: torch.Tensor, db_words: torch.Tensor,
         raise ValueError(f"W={q_words.shape[-1]} words: p <= 256 only")
     r10, r01 = tuples_ref(q_words, db_words)
     return scores_from_tuples(z_q, r10, r01)
+
+
+# the reference's name for the linear scan's oracle
+scan_scores_ref = scores_ref
 
 
 def verify_tuples_ref(q_words: torch.Tensor, cand_words: torch.Tensor):

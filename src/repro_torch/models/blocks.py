@@ -130,7 +130,8 @@ def _ffn(x, p, cfg):
     """The dense MLP, or the MoE block plus the dense-residual MLP, on
     (B, S, D). Returns (out, aux)."""
     if not cfg.is_moe:
-        return mlp(x, p["mlp"], cfg.activation), {}
+        with torch.profiler.record_function("mlp"):
+            return mlp(x, p["mlp"], cfg.activation), {}
     B, S, D = x.shape
     with torch.profiler.record_function("moe"):
         out, aux = moe_lib.moe_block(

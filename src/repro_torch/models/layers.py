@@ -119,9 +119,11 @@ def blocked_attention(q, k, v, *, causal: bool, window: int = 0,
     (B, Sk, Hkv, D) keys and values -> (B, Sq, Hq, D), through K7 (the
     kernel on a CUDA tensor, its plain version on a CPU tensor). Its
     gradient recomputes through ``_blocked_attention_impl`` in
-    ``q_chunk`` x ``kv_chunk`` blocks (``_FlashFwdOracleBwd``)."""
-    return _FlashFwdOracleBwd.apply(q, k, v, causal, window, q_chunk,
-                                    kv_chunk)
+    ``q_chunk`` x ``kv_chunk`` blocks (``_FlashFwdOracleBwd``). It runs in
+    the ``flash_attn`` range, the reference's named scope."""
+    with torch.profiler.record_function("flash_attn"):
+        return _FlashFwdOracleBwd.apply(q, k, v, causal, window, q_chunk,
+                                        kv_chunk)
 
 
 class _FlashFwdOracleBwd(torch.autograd.Function):
@@ -245,12 +247,14 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     [0, min(cache_len, S)), so it runs with that ``valid_len`` and no
     window: a softmax over a set of slots does not depend on their order.
     (The reference's ring branch bypasses its kernel; its plain path is
-    ``_decode_attention_impl`` with ``ring=True``.)"""
+    ``_decode_attention_impl`` with ``ring=True``.) It runs in the
+    ``decode_attn`` range, the reference's named scope."""
     if ring:
         cache_len, window = min(int(cache_len), k_cache.shape[1]), 0
-    return flash_attention(q.contiguous(), k_cache.contiguous(),
-                           v_cache.contiguous(), causal=False,
-                           window=window, valid_len=int(cache_len))
+    with torch.profiler.record_function("decode_attn"):
+        return flash_attention(q.contiguous(), k_cache.contiguous(),
+                               v_cache.contiguous(), causal=False,
+                               window=window, valid_len=int(cache_len))
 
 
 def _decode_attention_impl(q, k_cache, v_cache, cache_len, *,

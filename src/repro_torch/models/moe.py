@@ -114,8 +114,12 @@ def moe_block(x: torch.Tensor, params, *, top_k: int,
     for j in range(1, top_k):
         out = out + rows[:, j]
 
-    frac_tokens = torch.bincount(expert_idx.reshape(-1),
-                                 minlength=E).float() / (T * top_k)
+    # each expert's assignment count (bincount's, as a scatter-add of
+    # int64 ones, which also runs on the meta device)
+    flat_idx = expert_idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_idx, torch.ones_like(flat_idx))
+    frac_tokens = counts.float() / (T * top_k)
     aux = {
         "load_balance_loss": E * torch.sum(frac_tokens * probs.mean(dim=0)),
         "router_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),

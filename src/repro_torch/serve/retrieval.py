@@ -97,6 +97,12 @@ class RetrievalConfig:
     # where the encoder, AQBC and the engine run: None = the CUDA device
     device: Optional[object] = None
 
+    @property
+    def engine(self) -> str:
+        """Pre-shard name of ``backend``, kept for callers of the old
+        field."""
+        return self.backend
+
 
 @dataclass
 class RetrievalService:

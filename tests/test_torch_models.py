@@ -145,10 +145,31 @@ def test_blocked_attention_runs_k7_and_matches_reference():
     assert t_fa.LAUNCHES["flash_attention"] == before
 
 
+class _OtherDevice(torch.Tensor):
+    """Shape-only tensors on a device with no kernel and no plain version
+    (neither CPU nor CUDA nor ``meta``); any op on one fails."""
+
+    @staticmethod
+    def __new__(cls, shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise AssertionError(f"{func} ran on a device with no kernel")
+
+
 def test_k7_wrapper_checks_and_refuses_devices_without_a_kernel():
-    x = torch.zeros((1, 4, 2, 32), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        t_fa.flash_attention(x, x[:, :, :1], x[:, :, :1])
+        t_fa.flash_attention(_OtherDevice((1, 4, 2, 32)),
+                             _OtherDevice((1, 4, 1, 32)),
+                             _OtherDevice((1, 4, 1, 32)))
+    # on ``meta`` (the roofline's counter) nothing runs: an empty output
+    x = torch.zeros((1, 4, 2, 32), device="meta")
+    before = t_fa.LAUNCHES["flash_attention"]
+    out = t_fa.flash_attention(x, x[:, :, :1], x[:, :, :1])
+    assert out.device.type == "meta" and out.shape == x.shape
+    assert t_fa.LAUNCHES["flash_attention"] == before
     q = torch.zeros((1, 4, 3, 32))
     with pytest.raises(ValueError, match="query heads"):
         t_fa.flash_attention(q, q[:, :, :2], q[:, :, :2])
